@@ -8,10 +8,11 @@ the JAX package's public API, DataFrame contract and solver semantics; the
 JAX package (``same_tpu``) stays the reference the port is tested against.
 
 It imports ``torch`` and never ``jax``. The hot path of one window runs on
-the first CUDA card through two hand-written Hopper kernels, built from
-``csrc/`` at first use: ``auction_bid`` (the auction's bidding round) and
-``tear_metrics`` (the tear round's flip test and regret). Without a card the
-same code runs on the CPU through the kernels' plain PyTorch twins.
+the first CUDA card through hand-written Hopper kernels, built from
+``csrc/`` at first use: ``auction_loop`` (one whole auction solve per
+persistent launch) and ``tear_metrics`` (the tear round's flip test and
+regret). The entry points need a card unless they are given
+``device="cpu"``, which runs the kernels' plain PyTorch versions.
 """
 
 from .core import finalize_window, prepare_window, run_same, solve_prepared

@@ -58,7 +58,7 @@ from .geometry import (
 from .models.assignment import (
     AssignmentProblem,
     build_assignment_problem,
-    default_device,
+    resolve_device,
 )
 from .solver.tearing import TearingResult, solve_with_tearing
 from .utils.params import init_optim_params, init_solver_params
@@ -632,13 +632,17 @@ def solve_prepared(
     pw: PreparedWindow,
     deadline: Optional[float] = None,
     verbose: bool = True,
+    device=None,
 ) -> TearingResult:
     """Device phase: auction + tearing separation for one prepared window.
 
     ``deadline`` is an absolute ``time.time()`` value; the solve returns its
     best incumbent (flagged via ``result.info['time_limit_reached']``) once
     it passes (reference time_limit semantics, src/same.py:1245,1278).
+    ``device`` is where the solve runs: ``None`` is the first CUDA card (and
+    raises without one), ``"cpu"`` runs the kernels' plain versions.
     """
+    device = resolve_device(device)
     optim, solver = pw.optim, pw.solver
     lazy_constraints = optim["lazy_constraints"]
     allowed_frac = (
@@ -669,7 +673,6 @@ def solve_prepared(
     # loop: sub-512-point windows take the host separation loop, on the same
     # device as the big windows. Opt out with
     # solver_params['small_window_cpu']=False.
-    device = default_device()
     small_window = bool(solver.get("small_window_cpu", True))
 
     def _solve(eps):
@@ -978,11 +981,14 @@ def run_same(
     solver_params: Optional[Dict[str, Any]] = None,
     ignore_precomputed_triangulation: bool = False,
     verbose: bool = True,
+    device=None,
 ):
     """Find optimal spatial matches between aligned and reference cells.
 
     See module docstring for the I/O contract. ``gurobi_params`` is accepted
-    for API parity and merged with ``solver_params``.
+    for API parity and merged with ``solver_params``. ``device`` is where
+    the solve runs (see :func:`solve_prepared`): the first CUDA card by
+    default, ``"cpu"`` on request.
     """
     if solver_params is None:
         solver_params = gurobi_params or {}
@@ -1010,5 +1016,5 @@ def run_same(
             getattr(aligned_df, "metacell_idx_col", None) or "Cell_Num_Old"
         )
         return empty_matches_df(commonCT, cell_id_col), {"empty_window": True}
-    result = solve_prepared(pw, verbose=verbose)
+    result = solve_prepared(pw, verbose=verbose, device=device)
     return finalize_window(pw, result, outprefix=outprefix, verbose=verbose)

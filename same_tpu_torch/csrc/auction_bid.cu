@@ -1,5 +1,10 @@
 // K1 `auction_bid`: one bidding round of the epsilon-scaling auction.
 //
+// This single-round launch is the test entry: chip_smoke.py holds it against
+// its plain version at the Pallas bench shape and on the LUAD window. The
+// main path runs the same __device__ bodies (auction_round.cuh) inside the
+// persistent solve of auction_loop.cu, one launch per auction solve.
+//
 // Replaces
 //   - examples/bench_pallas.py:98-139 (`main.kernel`, the repo's only Pallas
 //     kernel): masked values, top-2 over C columns plus the no-match column,
@@ -40,25 +45,13 @@
 // sync. All arithmetic is f32 with explicit round-to-nearest intrinsics, so
 // nvcc cannot contract or reorder -(cost + p) or v1 - v2 + eps.
 
-#include <cmath>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "auction_round.cuh"
 
 namespace {
 
+using namespace same_auction;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ __forceinline__ unsigned int ordered_bits(float f) {
-  unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered(unsigned int o) {
-  unsigned int u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
-  return __uint_as_float(u);
-}
 
 __global__ void bid_kernel(const float* __restrict__ costs,
                            const int* __restrict__ slots,
@@ -71,43 +64,10 @@ __global__ void bid_kernel(const float* __restrict__ costs,
                            unsigned long long* __restrict__ keys) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n) return;
-  int a = assigned[b];
-  int na = a;
-  int col = -1;
-  if (a < 0 || a == C) {
-    const size_t row = static_cast<size_t>(b) * C;
-    float best = neg_inf(), second = neg_inf();
-    int bidx = 0;
-    // Strict '>' keeps the lower column on ties, like lax.top_k.
-    for (int k = 0; k < C; ++k) {
-      float v = neg_inf();
-      if (valid[row + k]) v = -__fadd_rn(costs[row + k], prices[slots[row + k]]);
-      bool better = v > best;
-      second = better ? best : fmaxf(second, v);
-      bidx = better ? k : bidx;
-      best = better ? v : best;
-    }
-    float vnm = -nm[b];
-    bool better = vnm > best;
-    second = better ? best : fmaxf(second, vnm);
-    bidx = better ? C : bidx;
-    best = better ? vnm : best;
-    if (bidx == C) {
-      if (a < 0) na = C;
-    } else {
-      float v2 = isfinite(second) ? second : __fsub_rn(best, 1.0f);
-      float incr = __fadd_rn(__fsub_rn(best, v2), eps);
-      int tgt = slots[row + bidx];
-      float bid = __fadd_rn(prices[tgt], incr);
-      unsigned long long key =
-          (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
-          static_cast<unsigned int>(n - b);
-      atomicMax(&keys[tgt], key);
-      col = bidx;
-    }
-  }
+  int na;
+  bid_col[b] = bid_body(b, assigned[b], costs, slots, valid, nm, prices, n, C,
+                        eps, keys, &na);
   new_assigned[b] = na;
-  bid_col[b] = col;
 }
 
 __global__ void resolve_kernel(const float* __restrict__ prices,
@@ -125,18 +85,7 @@ __global__ void resolve_kernel(const float* __restrict__ prices,
     new_owner[S] = -1;
     return;
   }
-  unsigned long long key = keys[s];
-  if (key == 0ull) {
-    newp[s] = prices[s];
-    new_owner[s] = owner[s];
-    return;
-  }
-  keys[s] = 0ull;
-  int w = n - static_cast<int>(key & 0xffffffffull);
-  newp[s] = from_ordered(static_cast<unsigned int>(key >> 32));
-  new_owner[s] = w;
-  int o = owner[s];
-  if (o >= 0 && o < n && o != w) new_assigned[o] = -1;
+  resolve_body(s, n, keys, prices, owner, newp, new_owner, new_assigned);
 }
 
 __global__ void settle_kernel(const int* __restrict__ slots,
@@ -148,17 +97,10 @@ __global__ void settle_kernel(const int* __restrict__ slots,
   int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n) return;
   int col = bid_col[b];
-  int na = new_assigned[b];
-  bool m = false;
-  if (col >= 0) {
-    m = true;  // any bid counts as movement (auction.py:293-295)
-    int tgt = slots[static_cast<size_t>(b) * C + col];
-    if (new_owner[tgt] == b) {
-      na = col;
-      new_assigned[b] = col;
-    }
-  }
-  if (m || na != assigned[b]) *moved = 1;
+  int na = settle_body(b, col, new_assigned[b], slots, new_owner, C,
+                       new_assigned);
+  // Any bid counts as movement (auction.py:293-295).
+  if (col >= 0 || na != assigned[b]) *moved = 1;
 }
 
 }  // namespace

@@ -9,7 +9,8 @@ in ``.gitignore``), for Hopper only::
 
 ``--fmad=false`` keeps nvcc from contracting a multiply and an add into an
 FMA: the kernels must round like XLA and PyTorch. A library is rebuilt when
-its source is newer. Nothing here runs at import time.
+its source or a shared header (``csrc/*.cuh``) is newer. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ NVCC_FLAGS = [
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict = {}
 # nvcc's diagnostics of each build (with -Xptxas -v: registers, spills).
 BUILD_LOG: dict = {}
 
@@ -46,14 +48,24 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library.
+
+    Safe to call from several threads: different kernels build in parallel.
+    """
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
         src = os.path.join(CSRC_DIR, f"{name}.cu")
         out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        if not os.path.exists(out) or os.path.getmtime(out) < os.path.getmtime(src):
+        newest = max(
+            os.path.getmtime(os.path.join(CSRC_DIR, f))
+            for f in os.listdir(CSRC_DIR)
+            if f == f"{name}.cu" or f.endswith(".cuh")
+        )
+        if not os.path.exists(out) or os.path.getmtime(out) < newest:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, src]

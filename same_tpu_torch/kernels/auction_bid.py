@@ -5,6 +5,12 @@
 ``same_tpu/solver/auction.py:256-291``, for CPU tensors. Both return the
 round's new assignment, owners and prices, and a one-element int32 ``moved``
 flag (any assignment change or any bid) that stays on the device.
+
+The single-round launch is the test entry (``chip_smoke.py`` holds it
+against its plain version): the main path runs the same ``__device__``
+bodies (``csrc/auction_round.cuh``) inside ``auction_loop``'s persistent
+kernel, one launch per auction solve. ``auction_bid_plain`` is the bidding
+round of ``auction_loop_plain``.
 """
 
 from __future__ import annotations

@@ -229,8 +229,22 @@ class TorchProblem(NamedTuple):
 
 
 def default_device() -> torch.device:
-    """The port's device: the first CUDA card when present, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The port's device: the first CUDA card. Raises when there is none.
+
+    The entry points never fall back to the CPU on their own; a caller that
+    wants the CPU (the kernels' plain versions) passes ``device="cpu"``.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "same_tpu_torch needs a CUDA card (torch.cuda.is_available() is "
+            "False); pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; ``None`` means :func:`default_device`."""
+    return torch.device(device) if device is not None else default_device()
 
 
 def to_device(problem: AssignmentProblem, device) -> TorchProblem:

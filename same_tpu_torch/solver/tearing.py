@@ -52,7 +52,7 @@ import torch
 from ..kernels.tear_metrics import tear_metrics
 from ..models.assignment import (
     AssignmentProblem,
-    default_device,
+    resolve_device,
     matching_objective,
     to_device,
 )
@@ -120,15 +120,16 @@ def solve_with_tearing(
     returned with ``info['time_limit_reached'] = True`` (reference
     time_limit semantics, src/same.py:1245,1278).
 
-    ``device`` is where both loops run (default: the first CUDA card, else
-    the CPU). ``small_window_host_loop`` is the small-window rule of
+    ``device`` is where both loops run (default: the first CUDA card, and
+    an error without one; ``"cpu"`` runs the kernels' plain versions).
+    ``small_window_host_loop`` is the small-window rule of
     ``core.solve_prepared``: windows under 512 points take the host loop on
     that same device.
     """
     import time as _time
 
     t_sep_start = _time.time()
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
     n_pad, C = problem.costs.shape
     n = problem.n_aligned
     tris = np.asarray(tris, dtype=np.int64).reshape(-1, 3)

@@ -1,9 +1,10 @@
 """Device-resident space-tearing loop, in PyTorch.
 
 Port of ``same_tpu/solver/tearing_device.py``. Each tear round re-solves the
-auction (kernel K1 inside), runs the flip test and the regret-directed choice
-of the vertex to move (kernel K2), scores the incumbent, registers cuts in a
-per-triangle dedup memory and surcharges the cheapest-to-move pair. All
+auction (one ``auction_loop`` launch), runs the flip test and the
+regret-directed choice of the vertex to move (kernel K2), scores the
+incumbent, registers cuts in a per-triangle dedup memory and surcharges the
+cheapest-to-move pair. All
 tensors stay on the device between rounds; the host reads a handful of
 scalars per round and takes the stop decisions on them with f32 semantics,
 and pulls every incumbent in one transfer at the end.
@@ -22,10 +23,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.auction_loop import auction_loop
 from ..kernels.tear_metrics import tear_metrics
-from ..models.assignment import AssignmentProblem, default_device, to_device
+from ..models.assignment import AssignmentProblem, resolve_device, to_device
 from .auction import (
-    _auction_run,
     default_eps_schedule,
     natural_stop_args,
     warm_eps_schedule,
@@ -122,7 +123,7 @@ def _tearing_loop(
         owner_in = torch.full_like(state.owner_c, -1)
         prices_in = torch.zeros_like(state.prices)
         rounds_budget = max_rounds
-    res = _auction_run(
+    res = auction_loop(
         costs + extra, inp.slots, inp.valid, inp.nm, prices_in, sched,
         max_rounds=rounds_budget, assigned0=assigned_in, owner0=owner_in,
         slot_rows=inp.slot_rows, slot_cols=inp.slot_cols,
@@ -326,7 +327,7 @@ def run_tearing_device(
         raise ValueError("run_tearing_device requires at least one triangle")
     n_pad, C = problem.costs.shape
     L = int(problem.n_slot_copies)
-    device = torch.device(device) if device is not None else default_device()
+    device = resolve_device(device)
 
     # Re-solve schedule sized to the cut surcharge (see warm_eps_schedule).
     finite = np.asarray(problem.costs)[np.asarray(problem.valid)]

@@ -1,12 +1,15 @@
 """Port parity: the auction (solver/auction.py) and _tear_metrics.
 
 The instances are those of tests/test_auction.py:47-118. Each is solved by
-the JAX package and by same_tpu_torch (the bidding round through K1's plain
-twin), cold and warm-started, at obj_patience 0 and 128. ``choice``,
+the JAX package and by same_tpu_torch (``auction_loop``'s plain loop, with
+the bidding round through K1's plain twin), cold and warm-started, at
+obj_patience 0 and 128. ``choice``,
 ``rounds``, ``phase``, ``polish`` and ``owner`` must be identical; prices
 agree to rtol 1e-6 and atol 1e-6 x the cost scale (both packages add the
 same f32 values in the same order, so they agree bit for bit in practice).
 """
+
+import importlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,9 @@ from same_tpu_torch.solver import auction as ta
 from same_tpu_torch.solver.tearing import _tear_metrics as torch_tear_metrics
 from test_auction import _random_instance
 from torch_parity import as_np, assert_bit_equal
+
+# The module, not the function the kernels package exports under its name.
+tal = importlib.import_module("same_tpu_torch.kernels.auction_loop")
 
 
 def _inst_simple(rng):
@@ -106,7 +112,7 @@ def _torch_run(problem, costs, state, sched, max_rounds, patience, eps_final,
                warm=True):
     pd = to_device(problem, "cpu")
     obj = ta.natural_stop_args(problem.costs.shape[0], eps_final, patience)
-    return ta._auction_run(
+    return tal.auction_loop(
         torch.as_tensor(costs), pd.slots, pd.valid, pd.nm_cost, state.prices,
         sched, max_rounds=max_rounds,
         assigned0=state.assigned if warm else None,
@@ -124,12 +130,15 @@ def test_solve_assignment_cold(name, patience):
         problem, eps_final=eps_final, return_raw=True, obj_patience=patience
     )
     got = ta.solve_assignment(
-        problem, eps_final=eps_final, return_raw=True, obj_patience=patience
+        problem, eps_final=eps_final, return_raw=True, obj_patience=patience,
+        device="cpu",
     )
     _assert_same_result(got, want, problem)
     # The decoded matching agrees as well.
     mr_j, mp_j, info_j = ja.solve_assignment(problem, eps_final=eps_final, obj_patience=patience)
-    mr_t, mp_t, info_t = ta.solve_assignment(problem, eps_final=eps_final, obj_patience=patience)
+    mr_t, mp_t, info_t = ta.solve_assignment(
+        problem, eps_final=eps_final, obj_patience=patience, device="cpu"
+    )
     np.testing.assert_array_equal(mr_t, mr_j)
     np.testing.assert_array_equal(mp_t, mp_j)
     assert info_t["rounds"] == info_j["rounds"]
@@ -184,6 +193,60 @@ def test_bid_rounds_step_for_step(name):
         got = _torch_run(problem, problem.costs, state, sched, k, 128, eps_final, warm=False)
         _assert_same_result(got, want, problem)
         assert_bit_equal(got.prices, want.prices, f"prices after {k} rounds")
+
+
+@pytest.mark.parametrize("patience", [0, 128])
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_control_step_replays_solve(monkeypatch, name, patience):
+    """_control_step, fed a plain solve's per-round (moved, cur_obj) trace,
+    ends on that solve's rounds, phase and polish, and stops there."""
+    problem, eps_final = _problem(name)
+    trace = []
+    step = tal._control_step
+
+    def spy(ctl, moved, cur_obj, *args):
+        trace.append((moved, cur_obj))
+        return step(ctl, moved, cur_obj, *args)
+
+    monkeypatch.setattr(tal, "_control_step", spy)
+    got = ta.solve_assignment(
+        problem, eps_final=eps_final, return_raw=True, obj_patience=patience,
+        device="cpu",
+    )
+    sched = ta.default_eps_schedule(problem, eps_final)
+    P = len(sched)
+    obj_p, obj_tol, _ = ta.natural_stop_args(
+        problem.costs.shape[0], float(sched[-1]), patience
+    )
+    ctl = tal.Control()
+    for moved, cur_obj in trace:
+        assert ctl.phase < P
+        ctl = step(ctl, moved, cur_obj, P, 64, obj_p, obj_tol)
+    assert (ctl.it, ctl.phase, ctl.polish) == (got.rounds, got.phase, got.polish)
+    assert ctl.phase == P  # finished, not cut by the round budget
+    assert len(trace) == got.rounds > 0
+
+
+def test_auction_loop_cpu_is_plain_loop():
+    """auction_loop on CPU tensors returns exactly what the plain loop does."""
+    problem, eps_final = _problem("scarce")
+    pd = to_device(problem, "cpu")
+    sched = ta.default_eps_schedule(problem, eps_final)
+    obj = ta.natural_stop_args(problem.costs.shape[0], eps_final, 128)
+    rng = np.random.default_rng(2)
+    prices0 = torch.as_tensor(
+        rng.uniform(0, 5, problem.n_slots + 1).astype(np.float32)
+    )
+    args = (pd.costs, pd.slots, pd.valid, pd.nm_cost, prices0, sched, 5000)
+    kw = dict(slot_rows=pd.slot_rows, slot_cols=pd.slot_cols,
+              obj_patience=obj[0], obj_tol=obj[1], obj_band=obj[2])
+    prices_in = prices0.clone()
+    got = tal.auction_loop(*args, **kw)
+    want = tal.auction_loop_plain(*args, **kw)
+    for field in ("choice", "prices", "owner"):
+        assert_bit_equal(getattr(got, field), getattr(want, field), field)
+    assert (got.rounds, got.phase, got.polish) == (want.rounds, want.phase, want.polish)
+    assert_bit_equal(prices0, prices_in, "prices0 left as it was")
 
 
 def test_tear_metrics_bit_equal():

@@ -32,12 +32,14 @@ def test_solve_with_tearing_parity(monkeypatch, case, device_loop):
     pairs, costs, n, limits, nm, tris, w, src, ref_xy = _swap_instance(rng, **kw)
     problem = build_assignment_problem(pairs, costs, n, n, limits, 100.0, nm)
     results = {}
-    for name, module in (("jax", jax_tearing), ("torch", torch_tearing)):
+    for name, module, dev in (
+        ("jax", jax_tearing, {}), ("torch", torch_tearing, {"device": "cpu"}),
+    ):
         calls = capture_finish(monkeypatch, module)
         res = module.solve_with_tearing(
             problem, costs, tris, w, src, ref_xy, delaunay_penalty=dp,
             penalty_coeff=100.0, allowed_flip_fraction=0.0, eps_final=1e-3,
-            device_loop=device_loop, repair_budget=120.0,
+            device_loop=device_loop, repair_budget=120.0, **dev,
         )
         results[name] = (res, calls[-1])
     (rj, cj), (rt, ct) = results["jax"], results["torch"]

@@ -68,15 +68,22 @@ def labeled_window(seed=0, n_side=8):
     return ref, qry
 
 
-def run_window(pkg, ref, qry):
-    """MS=1 collapse of the query, then ``pkg.run_same`` on the window."""
+def run_window(pkg, ref, qry, **kwargs):
+    """MS=1 collapse of the query, then ``pkg.run_same`` on the window.
+
+    The port (``same_tpu_torch``) is asked for the CPU explicitly: its entry
+    points run on the card by default. ``kwargs`` go to ``run_same``.
+    """
     mc = pkg.greedy_triangle_collapse(
         qry, max_metacell_size=1, r_max=2.0, min_angle_deg=5,
         return_object=True, verbose=False,
     )
+    if pkg.__name__ == "same_tpu_torch":
+        kwargs.setdefault("device", "cpu")
     return pkg.run_same(
         ref_df=ref, aligned_df=mc, commonCT=LABEL_TYPES,
         optim_params=WINDOW_OPTIM, solver_params=WINDOW_SOLVER, verbose=False,
+        **kwargs,
     )
 
 
