@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``same_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the full check, about 4 minutes on an H100
+    python3 chip_smoke.py            # the full check, about 6 minutes on an H100
 
 Phases (any failure exits nonzero; no phase's exception is swallowed):
 
@@ -10,7 +10,9 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
 1. Build the kernels from ``same_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc per source, all started together: ``auction_loop`` (one persistent
    launch per auction solve, the main path), K1 ``auction_bid`` (one bidding
-   round on the same device bodies, the test entry) and K2 ``tear_metrics``.
+   round on the same device bodies, the test entry), K2 ``tear_metrics``, K3
+   ``radius_knn`` (the device kNN) and K4 ``sinkhorn_sparse`` (the Sinkhorn
+   warm start).
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs:
    - ``auction_loop`` against the plain Python loop on (a) the LUAD window
@@ -29,6 +31,16 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    - K1 at the Pallas microbenchmark's shape [12288, 8] and on the LUAD
      window, K2 on that window's triangles: integer outputs and prices
      bit-equal; median times over 60 runs;
+   - K3 on the LUAD window's own coordinates (10,681 queries, 11,418 refs,
+     k = 8, radius 250): ``idx`` and ``mask`` identical, ``dist`` bit-equal;
+     and against the host cKDTree on the same input, within what the f32
+     expansion |q|^2 + |r|^2 - 2 q.r allows at these coordinates (4 ulp of
+     |q|^2 + |r|^2 on every squared distance, twice that between the two
+     lists position by position); the rows whose lists differ are counted;
+   - K4 on the LUAD problem ([12288, 24], 100 iterations): ``g`` within 1e-4
+     of its largest magnitude and the plan within 1e-5 (the design is
+     bit-equal but for CUDA's exp and log, which may be compiled another way
+     into PyTorch; whether they came out bit-equal is printed);
    - one small window solved end to end on the card and on the CPU must
      give identical incumbents in both separation loops.
 3. The slice: the LUAD-scale window of ``bench.py`` (25k cells a side, MS=3
@@ -49,11 +61,34 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    and 0.01 of the JAX package's record in BENCH_r05.json, and the
    objective at most 5 % (the window's mip_gap) above it.
 
+4. The window grid: a tissue of ``examples/bench_grid.py::make_tissue`` at
+   LUAD density over a quarter of its area (25k cells a side, MS=3 metacells,
+   2 x 2 windows of about 3,000 aligned metacells, C = 24, dp = 25) through
+   ``same_tpu_torch.sliding_window_matching`` on the card (no ``device``
+   argument) and ``merge_window_matches_unique_ref``, three times:
+   sequentially, with two windows in flight (the library default), and
+   sequentially with ``init_method="sinkhorn"`` and ``SAME_TPU_KNN=tpu``, so
+   that K3 and K4 run inside the slice. The three must give the same window
+   ids and the same decomposition; in every window ``auction_loop`` must
+   have launched once per auction solve and K2 at least once, K1 never, and
+   in the third run K3 and K4 once a window; every window's matching must be
+   valid and its objective finite and not below its lower bound; the merged
+   frame must hold each aligned and each ref id at most once; the pipelined
+   run's incumbents before repair must equal the sequential run's, window by
+   window, and the match counts after repair agree within 1 % (within 1 % of
+   the first run's for the third, whose candidate sets differ).
+5. Only with ``--synthetic`` (its repair runs for minutes at the default
+   budget of a window this small): the paper's synthetic tissue (seed 8899,
+   372 query cells, the host separation loop for windows under 512 points)
+   through ``same_tpu_torch.run_same`` with ``examples/run_synthetic.py``'s
+   parameters; matches, accuracy and flipped triangles are printed beside
+   the JAX package's quality record and held to a valid answer.
+
 Prints the kernel table as one JSON line, then the nvidia-smi line, then as
-the last line ``{"ok": true, "device": {...}}``. ``--cells N`` shrinks the
-window for debugging; the anchor check then does not apply and the run ends
-with ``"ok": false`` and exit code 2, as does ``--no-slice`` (phases 0-2
-only).
+the last line ``{"ok": true, "device": {...}}``. Debugging options, each
+ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
+window (the anchor check then does not apply), ``--no-slice`` stops after
+phase 2, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and phase 4.
 """
 
 from __future__ import annotations
@@ -95,6 +130,26 @@ SLICE_RUNS = (
     ("20 s repair budget, speculative repair on",
      dict(SOLVER, tpu_repair_budget=20), False),
 )
+
+
+# Phase 4: bench_grid.py::run_grid's parameters on a quarter of its tissue. A
+# 6,750-unit window over the 13,000-unit extent gives 2 x 2 solvable windows
+# of about 3,000 aligned metacells: the fused loop (n >= 512) without the
+# speculative repair (n <= 6144). The default repair budget at this size is
+# 450 s; the smoke gives the repair after separation a few seconds.
+GRID_CELLS = 25000
+GRID_EXTENT = 13000.0
+GRID_OPTIM = dict(OPTIM, window_size=6750, overlap=250, min_cells_per_window=30)
+GRID_REPAIR_BUDGET_S = 4.0
+GRID_SOLVER = dict(SOLVER, tpu_repair_budget=GRID_REPAIR_BUDGET_S)
+GRID_RUNS = (
+    ("sequential", dict(GRID_SOLVER, tpu_pipeline_windows=1), False),
+    ("pipelined, 2 windows in flight", dict(GRID_SOLVER, tpu_pipeline_windows=2), False),
+    ("sequential, Sinkhorn start + device kNN",
+     dict(GRID_SOLVER, tpu_pipeline_windows=1, init_method="sinkhorn"), True),
+)
+# H100 SXM peak f32 rate outside the tensor cores (NVIDIA's data sheet).
+F32_FLOP_PER_S = 67e12
 
 
 class SmokeFailure(RuntimeError):
@@ -171,7 +226,8 @@ def phase0():
     return name, smi_line
 
 
-KERNELS = ("auction_loop", "auction_bid", "tear_metrics")
+KERNELS = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
+           "sinkhorn_sparse")
 
 
 def phase1():
@@ -362,6 +418,128 @@ def phase2_window(pw, device):
         f"kernel {t_k:.4f} ms, twin {t_p:.4f} ms (median of 60); "
         f"bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us")
     return k1, (k2_err, t_k, t_p, b_ms)
+
+
+def phase2_knn(mc_ref, mc_align, device, smi_line):
+    """K3 on the LUAD window's coordinates: against its plain version (bit
+    for bit) and against the host cKDTree (within the f32 expansion)."""
+    import torch
+
+    from same_tpu_torch.candidates import radius_knn as radius_knn_host
+    from same_tpu_torch.kernels.radius_knn import radius_knn, radius_knn_plain
+
+    k, radius = OPTIM["knn"], float(OPTIM["radius"])
+    q64 = mc_align.metacell_df[["X", "Y"]].to_numpy(dtype=np.float64)
+    r64 = mc_ref.metacell_df[["X", "Y"]].to_numpy(dtype=np.float64)
+    q = torch.as_tensor(np.ascontiguousarray(q64, dtype=np.float32)).to(device)
+    r = torch.as_tensor(np.ascontiguousarray(r64, dtype=np.float32)).to(device)
+    n, m = len(q64), len(r64)
+    out_k = radius_knn(q, r, radius, k)
+    out_p = radius_knn_plain(q, r, radius, k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "dist", "mask"), out_k, out_p):
+        require_equal(f"K3 {name}", a, b)
+    finite = out_k[2]
+    err = float((out_k[1][finite] - out_p[1][finite]).abs().max())
+
+    # Against the exact answer: each squared distance the kernel reports is
+    # within 4 ulp of |q|^2 + |r|^2 of the exact one (the expansion's
+    # rounding), and position by position its list is within twice that of
+    # the cKDTree's, whose candidates are exact. A slot only one of them
+    # fills lies that close to the radius.
+    idx_k, dist_k, mask_k = (t.cpu().numpy() for t in out_k)
+    idx_h, dist_h, mask_h = radius_knn_host(q64, r64, radius, k, backend="host")
+    q32, r32 = q64.astype(np.float32).astype(np.float64), r64.astype(np.float32).astype(np.float64)
+    got = r32[np.clip(idx_k, 0, None)]
+    exact2 = ((q32[:, None, :] - got) ** 2).sum(-1)
+    tol = 4 * 2.0 ** -23 * ((q32 ** 2).sum(1)[:, None] + (got ** 2).sum(-1))
+    rep2 = dist_k.astype(np.float64) ** 2
+    bad = mask_k & (np.abs(np.where(mask_k, rep2, 0.0) - exact2) > tol)
+    require(not bad.any(), f"K3: {int(bad.sum())} squared distances off the exact ones "
+            f"by more than 4 ulp of |q|^2 + |r|^2")
+    host2 = np.where(mask_h, dist_h, radius) ** 2
+    kern2 = np.where(mask_k, exact2, radius ** 2)
+    both = mask_k | mask_h
+    far = both & (np.abs(kern2 - host2) > 2 * tol)
+    require(not far.any(), f"K3: {int(far.sum())} list entries further from the cKDTree's "
+            f"than the expansion allows")
+    rows = int(((idx_k != idx_h) & both).any(axis=1).sum())
+    edge = int((mask_k != mask_h).sum())
+    filled = mask_k & mask_h
+    dd = float(np.abs(dist_k[filled] - dist_h[filled]).max()) if filled.any() else 0.0
+
+    t_k = median_ms(lambda: radius_knn(q, r, radius, k), reps=30)
+    t_p = median_ms(lambda: radius_knn_plain(q, r, radius, k), reps=3, warmup=1)
+    nbytes = tensor_bytes(q, r, *out_k)
+    flops = 8.0 * n * m  # per pair: 3 mul, 3 add/sub, the clamp and the test
+    b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
+    log(f"[phase 2] K3 LUAD window: {n} queries, {m} refs, k = {k}, radius {radius:g}; "
+        f"idx, mask, dist bit-equal to the plain version; against the cKDTree {rows} rows "
+        f"differ ({edge} slots filled by one only, largest distance gap {dd:.4f}, all "
+        f"within 4 ulp of |q|^2+|r|^2 = {float(tol.max()):.1f} units^2 at most); "
+        f"kernel {t_k:.4f} ms (median of 30), plain {t_p:.3f} ms (median of 3); bound "
+        f"{flops / 1e9:.3f} GFLOP / 67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes "
+        f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.2f} us); {smi_line}")
+    return {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "rows_differing_from_ckdtree": rows}
+
+
+def phase2_sinkhorn(pw, device, smi_line):
+    """K4 on the LUAD window's problem against its plain version."""
+    import torch
+
+    from same_tpu_torch.kernels.sinkhorn_sparse import (
+        sinkhorn_sparse, sinkhorn_sparse_plain,
+    )
+
+    prob = pw.problem
+    n, K = prob.costs.shape
+    iters = 100
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    args = (up(prob.costs, torch.float32),
+            up(np.clip(np.asarray(prob.cand_ref), 0, None), torch.int32),
+            up(prob.valid, torch.bool), up(prob.nm_cost, torch.float32))
+    kw = dict(n_ref=int(prob.n_ref), eps=1.0, n_iters=iters)
+    plan_k, g_k = sinkhorn_sparse(*args, **kw)
+    plan_p, g_p = sinkhorn_sparse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(plan_k).all()),
+            "K4: the duals or the plan are not finite")
+    g_err = float((g_k - g_p).abs().max())
+    p_err = float((plan_k - plan_p).abs().max())
+    g_scale = max(1.0, float(g_p.abs().max()))
+    exact = first_diff(g_k, g_p) is None and first_diff(plan_k, plan_p) is None
+    require(g_err <= 1e-4 * g_scale, f"K4: g off the plain version by {g_err} "
+            f"(allowed 1e-4 x {g_scale})")
+    require(p_err <= 1e-5, f"K4: plan off the plain version by {p_err} (allowed 1e-5)")
+    row_err = float((plan_k.sum(1) - 1.0).abs().max())
+    require(row_err <= 1e-4, f"K4: a plan row sums to 1 +- {row_err}")
+    require(bool((plan_k[prob.n_aligned:, K] == 1.0).all()),
+            "K4: a padded row sent mass elsewhere than to the sink")
+    t_k = median_ms(lambda: sinkhorn_sparse(*args, **kw), reps=20, warmup=2)
+    t_p = median_ms(lambda: sinkhorn_sparse_plain(*args, **kw), reps=2, warmup=0)
+    entries = int(prob.valid.sum()) + n
+    nbytes = tensor_bytes(*args, plan_k, g_k)
+    # Per entry and pass: the logit (2), the maximum (1), exp of the shifted
+    # logit into the sum (3) and exp into the plan (2).
+    flops = 8.0 * entries * (iters + 1)
+    b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
+    log(f"[phase 2] K4 LUAD window: [n, K] = [{n}, {K}], n_ref = {prob.n_ref}, "
+        f"{entries - n} valid candidates, {iters} iterations ({2 * iters + 1} launches a "
+        f"call); against the plain version: "
+        f"{'bit-equal' if exact else 'not bit-equal'}, max |g| gap {g_err:.3g} of "
+        f"{g_scale:.4g} (allowed 1e-4 of it), plan gap {p_err:.3g} (allowed 1e-5); "
+        f"kernel {t_k:.4f} ms (median of 20), plain {t_p:.2f} ms (median of 2); bound "
+        f"{flops / 1e9:.4f} GFLOP / 67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes "
+        f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.2f} us); {smi_line}")
+    return {"err": max(g_err, p_err), "ms": t_k, "plain_ms": t_p,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+            "bit_equal": exact}
 
 
 def small_window_problem():
@@ -749,6 +927,346 @@ def phase3(mc_ref, mc_align, types, full, obj_lb):
             for label, solver, held in runs][0]
 
 
+# ----------------------------------------------------------------------------
+# Phase 4: the window grid
+# ----------------------------------------------------------------------------
+
+GRID_TYPES = ["B cell", "Epithelial", "Mesenchymal", "Myeloid", "T cell"]
+
+
+def make_tissue(n_cells, extent, seed=3, query_keep=0.94):
+    """LUAD-like tissue: the generator of examples/bench_grid.py (numpy and
+    pandas only), kept here so that the smoke imports nothing of examples/."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, extent, (n_cells, 2))
+    centers = rng.uniform(0, extent, (len(GRID_TYPES) * 24, 2))
+    center_type = rng.integers(0, len(GRID_TYPES), len(centers))
+    types = np.empty(n_cells, np.int64)
+    for s in range(0, n_cells, 20000):
+        d = ((xy[s:s + 20000, None, :] - centers[None, :, :]) ** 2).sum(-1)
+        types[s:s + 20000] = center_type[np.argmin(d, axis=1)]
+    probs = np.full((n_cells, len(GRID_TYPES)), 2.0)
+    probs[np.arange(n_cells), types] = 86.0
+    probs += rng.uniform(0, 2, probs.shape)
+    probs = probs / probs.sum(1, keepdims=True) * 100.0
+
+    def frame(jseed, keep_frac=1.0):
+        r = np.random.default_rng(jseed)
+        keep = r.random(n_cells) < keep_frac
+        df = pd.DataFrame(
+            xy[keep] + r.normal(0, 15.0, (int(keep.sum()), 2)), columns=["X", "Y"])
+        df["cell_type"] = np.asarray(GRID_TYPES)[types[keep]]
+        for k, nm in enumerate(GRID_TYPES):
+            df[nm] = probs[keep, k]
+        df["Cell_Num_Old"] = np.arange(len(df))
+        return df
+
+    return frame(1), frame(2, keep_frac=query_keep), list(GRID_TYPES)
+
+
+def thread_launches(fn):
+    """Launches of kernel wrapper ``fn`` made by the calling thread so far."""
+    import threading
+
+    return fn.__dict__.get("launches_by_thread", {}).get(threading.get_ident(), 0)
+
+
+class GridSpy:
+    """Record what each window of a ``sliding_window_matching`` run did.
+
+    Wraps the three stages in ``same_tpu_torch.core`` and
+    ``solver.tearing._finish_solve`` for the length of the ``with`` block. A
+    window runs its stages on one host thread, so the kernels' per-thread
+    launch counts before and after a stage are that window's. ``records``
+    holds one dict a window, in the order the windows were prepared.
+    """
+
+    STAGES = ("prepare_window", "solve_prepared", "finalize_window")
+
+    def __init__(self):
+        import threading
+
+        self.records = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.by_pw = {}
+
+    def __enter__(self):
+        from same_tpu_torch import core
+        from same_tpu_torch.solver import tearing
+
+        self.core, self.tearing = core, tearing
+        self.orig = {name: getattr(core, name) for name in self.STAGES}
+        self.orig_finish = tearing._finish_solve
+        core.prepare_window = self.prepare
+        core.solve_prepared = self.solve
+        core.finalize_window = self.finalize
+        tearing._finish_solve = self.finish
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.core, name, fn)
+        self.tearing._finish_solve = self.orig_finish
+        return False
+
+    def counted(self, names, fn, *a, **k):
+        """fn(*a, **k) and the calling thread's launches of ``names`` in it."""
+        from same_tpu_torch import kernels
+
+        before = {name: thread_launches(getattr(kernels, name)) for name in names}
+        out = fn(*a, **k)
+        return out, {name: thread_launches(getattr(kernels, name)) - before[name]
+                     for name in names}
+
+    def prepare(self, *a, **k):
+        t0 = time.time()
+        pw, launches = self.counted(("radius_knn", "sinkhorn_sparse"),
+                                    self.orig["prepare_window"], *a, **k)
+        slot_ref = pw.problem.slot_ref
+        rec = {
+            "t0": t0, "n_ref_in": len(a[0]), "n_mov_in": len(a[1]),
+            "n": int(pw.problem.n_aligned), "n_ref": int(pw.problem.n_ref),
+            "shape": list(pw.problem.costs.shape), "T": int(len(pw.tris)),
+            "obj_lb": float(pw.obj_lb), "launches": launches, "solves": [],
+            "capacity": np.bincount(slot_ref[slot_ref >= 0], minlength=pw.problem.n_ref),
+            "warm_start": pw.warm_info.get("method"),
+        }
+        with self.lock:
+            self.records.append(rec)
+            self.by_pw[id(pw)] = rec
+        return pw
+
+    def solve(self, pw, *a, **k):
+        rec = self.by_pw[id(pw)]
+        self.local.rec = rec
+        t0 = time.time()
+        res, launches = self.counted(("auction_loop", "tear_metrics"),
+                                     self.orig["solve_prepared"], pw, *a, **k)
+        self.local.rec = None
+        rec["launches"].update(launches)
+        used = np.bincount(res.match_ref[res.match_ref >= 0], minlength=rec["n_ref"])
+        rec.update(
+            solve_s=time.time() - t0, objective=float(res.objective),
+            matches=int((res.match_ref >= 0).sum()), tear_rounds=int(res.tear_rounds),
+            flip_fraction=float(res.flip_fraction),
+            auction_rounds=int(res.info.get("auction_rounds_total") or 0),
+            device_time=float(res.info.get("device_time") or 0.0),
+            separation=float(res.info.get("separation_time") or 0.0),
+            repair=float(res.info.get("repair_time") or 0.0),
+            over_capacity=int((used > rec["capacity"]).sum()),
+        )
+        return res
+
+    def finish(self, *a, **k):
+        rec = getattr(self.local, "rec", None)
+        if rec is not None:
+            # Incumbents before repair: per tear round, the auction's rounds
+            # and the number of matches.
+            rec["solves"].append([(int(inc[5]), int((np.asarray(inc[0]) >= 0).sum()))
+                                  for inc in a[10]])
+        return self.orig_finish(*a, **k)
+
+    def finalize(self, pw, *a, **k):
+        out = self.orig["finalize_window"](pw, *a, **k)
+        self.by_pw[id(pw)]["wall"] = time.time() - self.by_pw[id(pw)]["t0"]
+        return out
+
+
+def grid_run(mc_ref, mc_align, label, solver, device_knn):
+    """One ``sliding_window_matching`` of the tissue with the kernels' counts
+    from 0; returns (matches, merged, per-window records, grid wall)."""
+    import torch
+
+    from same_tpu_torch import (
+        kernels, merge_window_matches_unique_ref, sliding_window_matching,
+    )
+
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    old_env = os.environ.get("SAME_TPU_KNN")
+    if device_knn:
+        os.environ["SAME_TPU_KNN"] = "tpu"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with GridSpy() as spy:
+            matches = sliding_window_matching(
+                mc_ref, mc_align, optim_params=GRID_OPTIM, solver_params=solver,
+                verbose=False,
+            )
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        if old_env is None:
+            os.environ.pop("SAME_TPU_KNN", None)
+        else:
+            os.environ["SAME_TPU_KNN"] = old_env
+    merged = merge_window_matches_unique_ref([matches], cell_id_col="metacell_id")
+    launches = {name: fn.launches for name, fn in fns.items()}
+    recs = spy.records
+    wids = [int(w) for w in matches["window_id"].unique()]
+    log(f"[phase 4] {label}: grid wall {wall:.2f}s, {len(recs)} windows {wids}, "
+        f"{len(matches)} rows, {len(merged)} after the merge; repair budget "
+        f"{GRID_REPAIR_BUDGET_S:g}s a window; launches {json.dumps(launches)}")
+    for rec in recs:
+        log(f"[phase 4]   n {rec['n']} (in {rec['n_mov_in']} / {rec['n_ref_in']} ref), "
+            f"[n_pad, C] {rec['shape']}, T {rec['T']}: tear rounds {rec['tear_rounds']}, "
+            f"auction rounds {rec['auction_rounds']}, matches {rec['matches']}, flip "
+            f"{rec['flip_fraction']:.4f}, objective {rec['objective']:.1f} (lower bound "
+            f"{rec['obj_lb']:.1f}); device_time {rec['device_time']:.3f}s, separation "
+            f"{rec['separation']:.2f}s, repair {rec['repair']:.2f}s (budget "
+            f"{GRID_REPAIR_BUDGET_S:g}s), wall {rec['wall']:.2f}s; warm start "
+            f"{rec['warm_start']}; launches {json.dumps(rec['launches'])}")
+
+    require(4 <= len(recs) <= 6, f"{label}: {len(recs)} solvable windows, expected 4 to 6")
+    require(len(wids) == len(recs), f"{label}: {len(wids)} window ids for {len(recs)} windows")
+    require(launches["auction_bid"] == 0, f"{label}: the single-round K1 ran in the grid")
+    for name in ("auction_loop", "tear_metrics"):
+        require(launches[name] == sum(r["launches"][name] for r in recs),
+                f"{label}: {name} launches outside the windows' solves")
+    for i, rec in enumerate(recs):
+        what = f"{label}, window {i}"
+        require(512 <= rec["n"] <= 6144,
+                f"{what}: n = {rec['n']} is outside the fused loop without speculation")
+        solves = sum(len(s) for s in rec["solves"])
+        require(rec["launches"]["auction_loop"] == solves > 0,
+                f"{what}: auction_loop launched {rec['launches']['auction_loop']} times "
+                f"for {solves} auction solves")
+        require(rec["launches"]["tear_metrics"] > 0, f"{what}: K2 never ran")
+        want = 1 if device_knn else 0
+        require(rec["launches"]["radius_knn"] == want,
+                f"{what}: K3 launched {rec['launches']['radius_knn']} times, expected {want}")
+        require(rec["launches"]["sinkhorn_sparse"] == want,
+                f"{what}: K4 launched {rec['launches']['sinkhorn_sparse']} times, expected {want}")
+        require(rec["warm_start"] == ("sinkhorn" if device_knn else "greedy-auto"),
+                f"{what}: warm start {rec['warm_start']}")
+        require(rec["over_capacity"] == 0, f"{what}: {rec['over_capacity']} refs over capacity")
+        require(np.isfinite(rec["objective"]) and rec["objective"] >= rec["obj_lb"],
+                f"{what}: objective {rec['objective']} against lower bound {rec['obj_lb']}")
+        require(0 < rec["matches"] <= rec["n"] and 0.0 <= rec["flip_fraction"] <= 1.0,
+                f"{what}: {rec['matches']} matches, flip fraction {rec['flip_fraction']}")
+    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
+        require(merged[col].is_unique, f"{label}: {col} repeats in the merged frame")
+    require(len(merged) >= 0.9 * matches["Aligned_metacell_id"].nunique(),
+            f"{label}: the merge kept {len(merged)} of {len(matches)} rows")
+    return {"matches": matches, "merged": merged, "records": recs, "wall": wall,
+            "window_ids": wids, "launches": launches}
+
+
+def phase4(smi_line):
+    """The tissue through the window grid three ways (GRID_RUNS)."""
+    from same_tpu_torch import greedy_triangle_collapse
+
+    t0 = time.time()
+    ref_df, qry_df, _types = make_tissue(GRID_CELLS, GRID_EXTENT)
+    kw = dict(original_idx_col="Cell_Num_Old", max_metacell_size=3, r_max=250,
+              min_angle_deg=15, return_object=True, verbose=False)
+    mc_align = greedy_triangle_collapse(qry_df, **kw)
+    mc_ref = greedy_triangle_collapse(ref_df, **kw)
+    log(f"[phase 4] tissue: {len(ref_df)} / {len(qry_df)} cells over {GRID_EXTENT:g} units -> "
+        f"{len(mc_ref.metacell_df)} / {len(mc_align.metacell_df)} metacells in "
+        f"{time.time() - t0:.1f}s; window {GRID_OPTIM['window_size']}, overlap "
+        f"{GRID_OPTIM['overlap']}, dp {GRID_OPTIM['delaunay_penalty']:g}; {smi_line}")
+    runs = [grid_run(mc_ref, mc_align, label, solver, device_knn)
+            for label, solver, device_knn in GRID_RUNS]
+    seq, pipe, dev = runs
+
+    def sizes(run):
+        return sorted((r["n_mov_in"], r["n_ref_in"]) for r in run["records"])
+
+    for other, label in ((pipe, GRID_RUNS[1][0]), (dev, GRID_RUNS[2][0])):
+        require(sorted(other["window_ids"]) == sorted(seq["window_ids"]),
+                f"{label}: window ids {other['window_ids']} vs {seq['window_ids']}")
+        require(sizes(other) == sizes(seq), f"{label}: another window decomposition")
+    # Windows are prepared under a lock by two threads, so the pipelined
+    # run's order may differ: pair the windows by their input sizes.
+    by_size = {(r["n_mov_in"], r["n_ref_in"]): r for r in pipe["records"]}
+    for i, a in enumerate(seq["records"]):
+        b = by_size[(a["n_mov_in"], a["n_ref_in"])]
+        require(a["solves"] == b["solves"],
+                f"window {i}: the pipelined run's incumbents before repair differ from "
+                f"the sequential run's")
+        require(abs(a["matches"] - b["matches"]) <= 0.01 * a["matches"],
+                f"window {i}: {b['matches']} matches pipelined, {a['matches']} sequential")
+        log(f"[phase 4] window {i} (n {a['n']}): device_time sequential "
+            f"{a['device_time']:.3f}s, pipelined {b['device_time']:.3f}s; separation "
+            f"{a['separation']:.2f}s / {b['separation']:.2f}s; identical incumbents before "
+            f"repair over {sum(len(s) for s in a['solves'])} tear rounds")
+    for i, (a, c) in enumerate(zip(seq["records"], dev["records"])):
+        require(abs(a["matches"] - c["matches"]) <= 0.01 * a["matches"],
+                f"window {i}: {c['matches']} matches with the device kNN, {a['matches']} "
+                f"with the cKDTree")
+    log(f"[phase 4] grid wall: sequential {seq['wall']:.2f}s, pipelined {pipe['wall']:.2f}s, "
+        f"Sinkhorn start + device kNN {dev['wall']:.2f}s (repair budget "
+        f"{GRID_REPAIR_BUDGET_S:g}s a window)")
+    return runs
+
+
+# ----------------------------------------------------------------------------
+# Phase 5: the synthetic tissue (the host separation loop)
+# ----------------------------------------------------------------------------
+
+def phase5():
+    """Seed 8899 through run_same with examples/run_synthetic.py's parameters."""
+    import torch
+
+    from same_tpu_torch import create_full_benchmark, greedy_triangle_collapse, run_same
+    from same_tpu_torch.kernels import auction_loop
+
+    ref_df, query_df, _quadrants, _gt, _expr = create_full_benchmark(seed=8899)
+    mc_align = greedy_triangle_collapse(
+        query_df, cell_type_col="cell_type", original_idx_col="cell_idx",
+        x_col="X", y_col="Y", max_metacell_size=1, r_max=5, min_angle_deg=5,
+        return_object=True, verbose=False,
+    )
+    ref_in = ref_df.copy()
+    ref_in["metacell_id"] = np.arange(len(ref_in))
+    before = auction_loop.launches
+    t0 = time.time()
+    matches, var_out = run_same(
+        ref_df=ref_in, aligned_df=mc_align, commonCT=["c1", "c2", "c3"],
+        optim_params=dict(
+            max_matches=2, radius=5, knn=8, no_match_penalty=10000,
+            dist_ct_coeff=1, min_angle_deg=5, penalty_coeff=100,
+            delaunay_penalty=10.0, cell_id_col="metacell_id",
+            ref_metacell_match_multiplier=1, ignore_same_type_triangles=False,
+        ),
+        solver_params=dict(mip_gap=0.025, lazy_allowed_flip_fraction=0.0),
+        verbose=False,
+    )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    acc = float((
+        query_df["cell_type"].to_numpy()[matches["Aligned_metacell_id"]]
+        == ref_df["cell_type"].to_numpy()[matches["Ref_metacell_id"]]
+    ).mean())
+    tri = var_out["triangle_data"]
+    tpu = var_out["tpu"]
+    summary = {
+        "matches": int(len(matches)), "query_cells": int(len(query_df)),
+        "cell_type_accuracy": acc,
+        "triangles_flipped": len(tri["flipped_triangles"]),
+        "total_triangles": int(len(tri["triangles"])),
+        "violation_nodes": int(matches["triangle_violation"].sum()),
+        "objective": float(tpu["objective"]), "tear_rounds": int(tpu["tear_rounds"]),
+        "auction_launches": auction_loop.launches - before, "wall_s": wall,
+        "stage_times_s": {k: round(float(v), 3) for k, v in tpu["stage_times"].items()},
+    }
+    log("[phase 5] synthetic seed 8899 (JAX quality record, "
+        "examples/results/synthetic_dp10.json: 372 matches, 100 % accuracy, 26 of 698 "
+        "triangles flipped, 54 violation nodes): " + json.dumps(summary))
+    require(summary["auction_launches"] > 0, "synthetic: auction_loop never launched")
+    require(matches["Aligned_metacell_id"].is_unique, "synthetic: an aligned cell matched twice")
+    require(np.isfinite(summary["objective"]), "synthetic: objective is not finite")
+    require(summary["matches"] >= 0.95 * 372 and acc >= 0.95,
+            f"synthetic: {summary['matches']} matches at accuracy {acc}")
+    return summary
+
+
 def profile_solve(pw, device, out_dir):
     """torch.profiler over one auction solve on the window; table + trace."""
     import torch
@@ -803,6 +1321,12 @@ def main():
                     help="also profile one auction solve on the window into DIR")
     ap.add_argument("--no-slice", action="store_true",
                     help="stop after phase 2 (debugging; ends with \"ok\": false)")
+    ap.add_argument("--grid-only", action="store_true",
+                    help="phases 0-1, the K3 and K4 checks of phase 2, and phase 4 "
+                         "(debugging; ends with \"ok\": false)")
+    ap.add_argument("--synthetic", action="store_true",
+                    help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
+                         "minutes more)")
     args = ap.parse_args()
 
     import torch
@@ -825,6 +1349,17 @@ def main():
         f"S = {pw.problem.n_slots}, T = {len(pw.tris)}, {time.time() - t0:.1f}s")
 
     log(f"[phase 2] kernels against their twins on {smi_line}")
+    k3 = phase2_knn(mc_ref, mc_align, device, smi_line)
+    k4 = phase2_sinkhorn(pw, device, smi_line)
+    not_ok = json.dumps({"ok": False, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}})
+    if args.grid_only:
+        phase4(smi_line)
+        if args.synthetic:
+            phase5()
+        print(smi_line)
+        print(not_ok)
+        return 2
     k1_rand = phase2_k1_random(device)
     k1_win, k2_win = phase2_window(pw, device)
     loop = phase2_loop(pw, device, smi_line)
@@ -833,11 +1368,14 @@ def main():
         profile_solve(pw, device, args.profile)
     if args.no_slice:
         print(smi_line)
-        print(json.dumps({"ok": False, "device": {"platform": "gpu", "kind": name,
-                                                  "count": torch.cuda.device_count()}}))
+        print(not_ok)
         return 2
     summary = phase3(mc_ref, mc_align, types, full=args.cells == LUAD_CELLS,
                      obj_lb=pw.obj_lb)
+    grid = phase4(smi_line)
+    if args.synthetic:
+        phase5()
+    grid_launches = {label: run["launches"] for (label, _s, _d), run in zip(GRID_RUNS, grid)}
 
     a = loop["a"]
     kernels = [
@@ -872,7 +1410,31 @@ def main():
             "max_abs_err": k2_win[0], "ms": k2_win[1], "plain_ms": k2_win[2],
             "bound_ms": k2_win[3], "bound_by": "bytes", "library_ms": None,
         },
+        # K3 and K4 run only where a window selects them: their launches are
+        # those of the grid's third run. No single PyTorch call computes
+        # either (cdist and topk are two, with another rounding; Sinkhorn is
+        # a loop of many).
+        {
+            "name": "radius_knn", "route": "cuda",
+            "source": "same_tpu_torch/csrc/radius_knn.cu",
+            "replaces": "same_tpu/ops/pairwise.py:20",
+            "launches": grid[2]["launches"]["radius_knn"],
+            "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+            "rows_differing_from_ckdtree": k3["rows_differing_from_ckdtree"],
+        },
+        {
+            "name": "sinkhorn_sparse", "route": "cuda",
+            "source": "same_tpu_torch/csrc/sinkhorn_sparse.cu",
+            "replaces": "same_tpu/ops/sinkhorn.py:57",
+            "launches": grid[2]["launches"]["sinkhorn_sparse"],
+            "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+            "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
+            "bit_equal_to_plain": k4["bit_equal"],
+        },
     ]
+    for kern in kernels[:3]:
+        kern["launches_in_grid"] = {label: l[kern["name"]] for label, l in grid_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     ok = args.cells == LUAD_CELLS

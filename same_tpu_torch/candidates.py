@@ -5,10 +5,12 @@ Array core + DataFrame wrappers preserving the reference API:
 reindex-to-participating-rows behavior, and
 ``find_knn_with_cell_type_priority`` (reference src/knn_utils.py:5-78).
 
-Host copy of ``same_tpu/candidates.py``. Only the host cKDTree sweep is
-available here: the device brute-force backend (``same_tpu/ops/pairwise.py``,
-chosen by ``SAME_TPU_KNN=tpu`` or above 4e9 n*m) is not ported yet and
-raises ``NotImplementedError`` instead of falling back.
+Counterpart of ``same_tpu/candidates.py``. The host cKDTree sweep is the
+default; the device brute-force backend (``ops/pairwise.py``, kernel K3) is
+chosen by ``SAME_TPU_KNN=tpu`` or above 4e9 n*m. The branch value and the
+variable keep the JAX package's names. ``device`` is where that backend
+runs: ``None`` is the first CUDA card (and raises without one), ``"cpu"``
+runs the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ def radius_knn(
     radius: float,
     k: int,
     backend: str | None = None,
+    device=None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-query k nearest refs within ``radius``.
 
@@ -45,8 +48,16 @@ def radius_knn(
         backend = "tpu" if n * len(ref_xy) > 4_000_000_000 else "host"
 
     if backend == "tpu":
-        raise NotImplementedError(
-            "device kNN (ops/pairwise.py) is not ported yet: ROADMAP A11 / B11"
+        from .ops.pairwise import radius_knn_device
+
+        idx, dist, mask = radius_knn_device(
+            np.asarray(query_xy, np.float32), np.asarray(ref_xy, np.float32),
+            float(radius), int(k), device=device,
+        )
+        return (
+            idx.cpu().numpy(),
+            dist.cpu().numpy().astype(np.float64),
+            mask.cpu().numpy(),
         )
 
     from scipy.spatial import cKDTree
@@ -77,7 +88,9 @@ def _pairs_from_padded(idx: np.ndarray, mask: np.ndarray) -> np.ndarray:
     return np.column_stack([qi[flat_mask], flat_idx[flat_mask]])
 
 
-def find_knn_within_radius(aligned_df, ref_df, radius=25, knn=5, backend=None):
+def find_knn_within_radius(
+    aligned_df, ref_df, radius=25, knn=5, backend=None, device=None
+):
     """Find kNN candidate pairs and reindex both frames to participating rows.
 
     Parity with reference src/utils.py:709-742: rows of ``aligned_df`` /
@@ -86,7 +99,9 @@ def find_knn_within_radius(aligned_df, ref_df, radius=25, knn=5, backend=None):
     """
     aligned_xy = aligned_df[["X", "Y"]].to_numpy()
     ref_xy = ref_df[["X", "Y"]].to_numpy()
-    idx, _dist, mask = radius_knn(aligned_xy, ref_xy, radius, knn, backend=backend)
+    idx, _dist, mask = radius_knn(
+        aligned_xy, ref_xy, radius, knn, backend=backend, device=device
+    )
     pairs = _pairs_from_padded(idx, mask)
     if len(pairs) == 0:
         return (
@@ -141,7 +156,7 @@ def preprocess_data(aligned_df, ref_df, radius):
     )
 
 
-def find_knn_with_cell_type_priority(aligned_df, ref_df, radius, knn=5):
+def find_knn_with_cell_type_priority(aligned_df, ref_df, radius, knn=5, device=None):
     """kNN with same-cell-type priority (reference src/knn_utils.py:5-78).
 
     After the standard radius-kNN pass, each aligned point whose *closest*
@@ -150,7 +165,7 @@ def find_knn_with_cell_type_priority(aligned_df, ref_df, radius, knn=5):
     otherwise all its kNN pairs are kept.
     """
     aligned_df, ref_df, all_pairs = find_knn_within_radius(
-        aligned_df, ref_df, radius, knn=knn
+        aligned_df, ref_df, radius, knn=knn, device=device
     )
     if len(all_pairs) == 0:
         return aligned_df, ref_df, all_pairs

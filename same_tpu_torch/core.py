@@ -28,9 +28,11 @@ phase out across a mesh (parallel/shard.py):
 ``run_same`` composes the three for the single-window, reference-parity path.
 
 PyTorch port of ``same_tpu/core.py``: the host stages are the same code; the
-solve runs on the first CUDA card when one is present (kernels K1 and K2),
-else on the CPU with the kernels' plain twins. The Sinkhorn warm start is
-not ported yet and raises ``NotImplementedError``.
+solve runs on the first CUDA card (the ``auction_loop`` and K2 kernels), or
+on the CPU with the kernels' plain versions when the caller passes
+``device="cpu"``. ``prepare_window`` reaches the device only where the
+window selects it: the device kNN (``SAME_TPU_KNN=tpu``, kernel K3) and the
+Sinkhorn warm start (``init_method="sinkhorn"``, kernel K4).
 """
 
 from __future__ import annotations
@@ -158,11 +160,15 @@ def prepare_window(
     solver_params: Optional[Dict[str, Any]] = None,
     ignore_precomputed_triangulation: bool = False,
     verbose: bool = True,
+    device=None,
 ) -> PreparedWindow:
     """Host preprocessing: candidates, triangulation, costs, problem build.
 
     Mirrors reference src/same.py:891-1215 (everything before
-    ``model.optimize``). Returns a :class:`PreparedWindow`.
+    ``model.optimize``). Returns a :class:`PreparedWindow`. ``device`` is
+    used only by the two device computations a window can select, the
+    device kNN and the Sinkhorn warm start: ``None`` is the first CUDA card
+    (and raises without one), ``"cpu"`` runs their plain versions.
     """
     t_start = time.time()
     stage_times: Dict[str, float] = {}
@@ -228,11 +234,11 @@ def prepare_window(
     t0 = time.time()
     if optim["ignore_knn_if_matched"]:
         aligned_df, ref_df, valid_pairs = find_knn_with_cell_type_priority(
-            aligned_df, ref_df, radius, knn=knn
+            aligned_df, ref_df, radius, knn=knn, device=device
         )
     else:
         aligned_df, ref_df, valid_pairs = find_knn_within_radius(
-            aligned_df, ref_df, radius, knn=knn
+            aligned_df, ref_df, radius, knn=knn, device=device
         )
     stage_times["candidates"] = time.time() - t0
     valid_pairs = np.asarray(valid_pairs, dtype=np.int64).reshape(-1, 2)
@@ -457,10 +463,13 @@ def prepare_window(
         )
         method_used = "hungarian"
     elif init_method == "sinkhorn":
-        raise NotImplementedError(
-            "init_method='sinkhorn' needs ops/sinkhorn.py, which is not "
-            "ported yet (ROADMAP A10 / B10)"
-        )
+        # Entropic-OT dual prices as the warm start (ops/sinkhorn.py): the
+        # regularized transport problem's column potentials approximate the
+        # assignment equilibrium prices directly.
+        from .ops.sinkhorn import sinkhorn_prices
+
+        chosen, unmatched, method_used = [], set(), "sinkhorn"
+        prices0 = np.asarray(sinkhorn_prices(problem, device=device))
     elif init_method == "greedy" or (
         init_method is None and solver.get("tpu_auto_warm_start", True)
     ):
@@ -1008,6 +1017,7 @@ def run_same(
             solver_params=solver_params,
             ignore_precomputed_triangulation=ignore_precomputed_triangulation,
             verbose=verbose,
+            device=device,
         )
     except EmptyWindowError as e:
         if verbose:

@@ -98,6 +98,27 @@ def check_tensors(what: str, device, spec) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, **attrs) -> None:
+    """Add one to ``wrapper.launches`` after a launch, and to the calling
+    thread's entry of ``wrapper.launches_by_thread``; set ``attrs`` on it.
+
+    Windows in flight on several host threads (the pipelined window grid)
+    launch from each of them, so the counts are updated under a lock and are
+    also kept per thread: a caller reads its own thread's entry before and
+    after a window to get that window's launches.
+    """
+    tid = threading.get_ident()
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        by_thread = wrapper.__dict__.setdefault("launches_by_thread", {})
+        by_thread[tid] = by_thread.get(tid, 0) + 1
+        for name, value in attrs.items():
+            setattr(wrapper, name, value)
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:

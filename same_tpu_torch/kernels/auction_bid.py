@@ -157,7 +157,7 @@ def auction_bid(costs, slots, valid, nm, prices, assigned, owner, eps) -> BidRou
         keys.data_ptr(), stream,
     )
     _build.check(lib, rc, "auction_bid")
-    auction_bid.launches += 1
+    _build.count_launch(auction_bid)
     return BidRound(new_assigned, new_owner, newp, moved)
 
 

@@ -403,13 +403,12 @@ def auction_loop(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "auction_loop")
-    auction_loop.launches += 1
     st = stats.cpu().tolist()  # the one host read of the solve
-    auction_loop.last_stats = {
+    _build.count_launch(auction_loop, last_stats={
         "rounds": st[0], "boundary_rounds": st[3],
         "active_bidder_rounds": st[4], "grid": st[5], "unplaced_at_exit": st[6],
         "resolved_slot_rounds": st[7], "released_rows_read": st[8],
-    }
+    })
     return AuctionResult(
         choice=choice, prices=prices, rounds=st[0], owner=owner,
         phase=st[1], polish=st[2],

@@ -99,7 +99,7 @@ def tear_metrics(
         flipped.data_ptr(), vmove.data_ptr(), stream,
     )
     _build.check(lib, rc, "tear_metrics")
-    tear_metrics.launches += 1
+    _build.count_launch(tear_metrics)
     return checked, flipped, vmove
 
 

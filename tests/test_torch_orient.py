@@ -70,3 +70,29 @@ def test_matched_triangle_flips_equal(seed):
     for g, w, name in zip(got, want, ("checked", "flipped")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert got[0].any() and got[1].any()
+
+
+def test_two_vertices_on_one_ref_are_not_checked():
+    """With ``max_matches`` >= 2 two vertices of a triangle can hold the same
+    ref. Its image is then exactly degenerate: x*y - y*x with each product
+    its own f32 op is 0, as in numpy, and the triangle is not checked. (A
+    compiler that contracts the expression to an FMA leaves the product's
+    rounding residual instead, and a sign of chance: jitted XLA on the CPU
+    does, which is why the two packages' tear rounds part on such windows.)
+    """
+    rng = np.random.default_rng(6)
+    ref_xy = rng.uniform(-50, 50, (40, 2)).astype(np.float32)
+    tris = np.stack([rng.permutation(30)[:3] for _ in range(200)])
+    match_ref = rng.integers(0, 40, 30).astype(np.int32)
+    shared = match_ref[tris[:, 1]] == match_ref[tris[:, 2]]
+    match_ref_t = torch.as_tensor(match_ref)
+    tris_t = torch.as_tensor(tris)
+    cross = to.triangle_cross(torch.as_tensor(ref_xy), match_ref_t[tris_t].long())
+    checked, flipped = to.matched_triangle_flips(
+        torch.as_tensor(ref_xy), tris_t, torch.ones(200, dtype=torch.bool),
+        match_ref_t, torch.ones(200, dtype=torch.int32),
+    )
+    assert shared.sum() >= 3
+    assert (cross.numpy()[shared] == 0).all()
+    assert not checked.numpy()[shared].any() and not flipped.numpy()[shared].any()
+    assert checked.numpy()[~shared].any()

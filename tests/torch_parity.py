@@ -72,7 +72,8 @@ def run_window(pkg, ref, qry, **kwargs):
     """MS=1 collapse of the query, then ``pkg.run_same`` on the window.
 
     The port (``same_tpu_torch``) is asked for the CPU explicitly: its entry
-    points run on the card by default. ``kwargs`` go to ``run_same``.
+    points run on the card by default. ``kwargs`` go to ``run_same``;
+    ``optim_params`` and ``solver_params`` default to the WINDOW_ constants.
     """
     mc = pkg.greedy_triangle_collapse(
         qry, max_metacell_size=1, r_max=2.0, min_angle_deg=5,
@@ -80,10 +81,10 @@ def run_window(pkg, ref, qry, **kwargs):
     )
     if pkg.__name__ == "same_tpu_torch":
         kwargs.setdefault("device", "cpu")
+    kwargs.setdefault("optim_params", WINDOW_OPTIM)
+    kwargs.setdefault("solver_params", WINDOW_SOLVER)
     return pkg.run_same(
-        ref_df=ref, aligned_df=mc, commonCT=LABEL_TYPES,
-        optim_params=WINDOW_OPTIM, solver_params=WINDOW_SOLVER, verbose=False,
-        **kwargs,
+        ref_df=ref, aligned_df=mc, commonCT=LABEL_TYPES, verbose=False, **kwargs,
     )
 
 
@@ -138,3 +139,36 @@ def assert_same_incumbents(got, want):
         assert a[5] == b[5], f"round {r}: auction rounds {a[5]} vs {b[5]}"
     for key in ("cut_tris", "cut_verts", "cut_pairs", "cuts_added"):
         assert got[key] == want[key], key
+
+
+def knn_points(kind="random", seed=12345):
+    """(query_xy [n, 2], ref_xy [m, 2], radius, k) as float32 numpy inputs.
+
+    ``random`` is the instance of tests/test_candidates.py (uniform points in
+    a 10 x 10 box). ``ties`` puts both sets on a half-integer lattice, where
+    the f32 expansion is exact: many refs lie at exactly equal distances (the
+    order must go to the lower ref index), duplicates included, and queries
+    near the far corner have fewer than k refs in range.
+    """
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return (rng.uniform(0, 10, (37, 2)).astype(np.float32),
+                rng.uniform(0, 10, (53, 2)).astype(np.float32), 2.5, 4)
+    ref = rng.integers(0, 12, (60, 2)).astype(np.float32) / 2.0
+    qry = rng.integers(0, 24, (45, 2)).astype(np.float32) / 2.0
+    return qry, ref, 1.5, 6
+
+
+def sinkhorn_problem(seed, n, m, per_row, nm=50.0):
+    """A random sparse assignment problem in numpy: ``per_row`` candidate
+    refs for each of ``n`` points among ``m`` refs of unit capacity
+    (tests/test_sinkhorn.py's instances). Returns the arguments of
+    ``build_assignment_problem``."""
+    rng = np.random.default_rng(seed)
+    pairs, costs = [], []
+    for i in range(n):
+        for j in rng.choice(m, per_row, replace=False):
+            pairs.append((i, int(j)))
+            costs.append(float(rng.uniform(0, 10)))
+    return (np.asarray(pairs), np.asarray(costs), n, m, np.ones(m, int), 100.0,
+            np.full(n, nm))
