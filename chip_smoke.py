@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``same_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the full check, about 6 minutes on an H100
+    python3 chip_smoke.py            # the full check, about 7 minutes on an H100
 
 Phases (any failure exits nonzero; no phase's exception is swallowed):
 
@@ -9,10 +9,12 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    limit.
 1. Build the kernels from ``same_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc per source, all started together: ``auction_loop`` (one persistent
-   launch per auction solve, the main path), K1 ``auction_bid`` (one bidding
-   round on the same device bodies, the test entry), K2 ``tear_metrics``, K3
-   ``radius_knn`` (the device kNN) and K4 ``sinkhorn_sparse`` (the Sinkhorn
-   warm start).
+   launch per auction solve, the main path; its source also holds K5
+   ``auction_loop_batch``, the same solve for a batch of windows), K1
+   ``auction_bid`` (one bidding round on the same device bodies, the test
+   entry), K2 ``tear_metrics`` (its source also holds K6
+   ``tear_metrics_batch``), K3 ``radius_knn`` (the device kNN) and K4
+   ``sinkhorn_sparse`` (the Sinkhorn warm start).
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs:
    - ``auction_loop`` against the plain Python loop on (a) the LUAD window
@@ -48,8 +50,12 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    ``device`` argument), three times:
    - the main path, with bench.py's parameters (default repair budgets, as
      in the JAX record);
-   - at a 20 s repair budget with the speculative repair off, so that the
-     repair after separation runs (it must);
+   - at a 65 s repair budget (the speculative thread's default) with the
+     speculative repair off, so that the repair after separation runs (it
+     must). The repair is an anytime search cut by the clock (ROADMAP C4):
+     at 20 s its objective ranged over 31,522-39,789 in five runs on H100
+     hosts of different speeds, past the 5 % gate on the slowest, so this
+     run gets the speculative thread's default budget;
    - at a 20 s budget with the speculative repair on, the library default
      for a caller who sets only the budget. Once separation is fast its
      answer is a race between the two repairs (ROADMAP C8), so it is
@@ -77,6 +83,27 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    run's incumbents before repair must equal the sequential run's, window by
    window, and the match counts after repair agree within 1 % (within 1 % of
    the first run's for the third, whose candidate sets differ).
+6. The batched window solve, on phase 4's tissue:
+   (f) ``sliding_window_matching(mesh=parallel.make_mesh())`` with phase 4's
+   parameters, the counts from 0: K5 launched once a tear round of each
+   batch (more only where a batch's blocks cannot all be co-resident), K6
+   once a tear round, no solo ``auction_loop`` or K2 launch but an eps-retry
+   re-solve's; the same window ids as phase 4's sequential run, merged
+   matches within 1 % + 2 of it and merged-pair agreement at least 0.90
+   (tests/test_windows_sharded.py's gate: each solve gets the batch's round
+   budget, so the incumbents differ); every window a valid matching at or
+   above its lower bound. Then on the windows of its largest batch:
+   (a) K5 cold on the full schedule at the batch's budget against one solo
+   ``auction_loop`` launch a window and against its plain version, (b) K5
+   against its plain version on three 144-point windows, (c) K5 on more
+   copies of the LUAD window than one launch holds, and on two copies of a
+   window wider than the batch kernel's co-resident grid (73,728 slots),
+   each copy against a solo launch, (d) K6 against one K2
+   launch a window and against its plain version, all bit-equal; (e) each
+   batch of (f) against ``run_tearing_device`` window by window given the
+   batch's budget and schedule length: identical incumbents before repair
+   and cut registries. Times of K5 (beside the solo launches) and K6, their
+   plain versions and their byte bounds.
 5. Only with ``--synthetic`` (its repair runs for minutes at the default
    budget of a window this small): the paper's synthetic tissue (seed 8899,
    372 query cells, the host separation loop for windows under 512 points)
@@ -88,7 +115,8 @@ Prints the kernel table as one JSON line, then the nvidia-smi line, then as
 the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
-phase 2, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and phase 4.
+phase 2, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and phases 4
+and 6.
 """
 
 from __future__ import annotations
@@ -125,8 +153,8 @@ SOLVER = dict(
 # answer depends on which repair wins (ROADMAP C8).
 SLICE_RUNS = (
     ("bench.py parameters", SOLVER, True),
-    ("20 s repair budget, speculative repair off",
-     dict(SOLVER, tpu_repair_budget=20, tpu_speculative_repair=False), True),
+    ("65 s repair budget, speculative repair off",
+     dict(SOLVER, tpu_repair_budget=65, tpu_speculative_repair=False), True),
     ("20 s repair budget, speculative repair on",
      dict(SOLVER, tpu_repair_budget=20), False),
 )
@@ -226,8 +254,12 @@ def phase0():
     return name, smi_line
 
 
-KERNELS = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
+# The kernels' sources (one nvcc each) and their wrappers: K5
+# ``auction_loop_batch`` is in auction_loop.cu, K6 ``tear_metrics_batch`` in
+# tear_metrics.cu.
+SOURCES = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
            "sinkhorn_sparse")
+KERNELS = SOURCES + ("auction_loop_batch", "tear_metrics_batch")
 
 
 def phase1():
@@ -241,11 +273,11 @@ def phase1():
         return time.time() - t0
 
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        took = dict(zip(KERNELS, pool.map(build, KERNELS)))
-    log(f"[phase 1] built {', '.join(KERNELS)} in parallel in "
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        took = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    log(f"[phase 1] built {', '.join(SOURCES)} in parallel in "
         f"{time.time() - t0:.1f}s ({os.path.relpath(_build.BUILD_DIR, HERE)})")
-    for name in KERNELS:
+    for name in SOURCES:
         log(f"[phase 1] {name}: {took[name]:.1f}s")
         for line in _build.BUILD_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -542,13 +574,13 @@ def phase2_sinkhorn(pw, device, smi_line):
             "bit_equal": exact}
 
 
-def small_window_problem():
+def small_window_problem(seed=7):
     """The 144-point window: a jittered 12x12 grid with swapped features."""
     from same_tpu_torch.candidates import radius_knn
     from same_tpu_torch.geometry import delaunay_simplices, orientation_signs_np
     from same_tpu_torch.models.assignment import build_assignment_problem
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     side = 12
     g = np.stack(np.meshgrid(np.arange(side), np.arange(side)), -1).reshape(-1, 2).astype(float)
     ref_xy = g + rng.normal(0, 0.05, g.shape)
@@ -753,11 +785,24 @@ def compare_loop(tag, pd, costs, prices0, sched, patience, max_rounds=500000,
                "rounds": k.rounds, "unplaced_at_exit": stats["unplaced_at_exit"]}
 
 
+def random_problem(nq, m, seed=3):
+    """``nq`` bidders with 8 random candidates each among ``m`` unit slots,
+    costs uniform in [0, 100), no-match cost 150."""
+    from same_tpu_torch.models.assignment import build_assignment_problem
+
+    rng = np.random.default_rng(seed)
+    cand = np.stack([rng.choice(m, 8, replace=False) for _ in range(nq)])
+    pairs = np.stack([np.repeat(np.arange(nq), 8), cand.ravel()], 1)
+    return build_assignment_problem(
+        pairs, rng.uniform(0, 100, len(pairs)), nq, m, np.ones(m, int), 100.0,
+        np.full(nq, 150.0))
+
+
 def phase2_loop(pw, device, smi_line):
     """auction_loop against its plain loop: cases (a)-(d)."""
     import torch
 
-    from same_tpu_torch.models.assignment import build_assignment_problem, to_device
+    from same_tpu_torch.models.assignment import to_device
     from same_tpu_torch.solver.auction import (
         SCHEDULE_LEN, default_eps_schedule, warm_eps_schedule,
     )
@@ -795,13 +840,7 @@ def phase2_loop(pw, device, smi_line):
 
     # 2,048 bidders with 8 random candidates each among 3,072 unit slots:
     # about 600 rounds to the fixed point.
-    rng = np.random.default_rng(3)
-    nq, m = 2048, 3072
-    cand = np.stack([rng.choice(m, 8, replace=False) for _ in range(nq)])
-    pairs = np.stack([np.repeat(np.arange(nq), 8), cand.ravel()], 1)
-    rand = build_assignment_problem(
-        pairs, rng.uniform(0, 100, len(pairs)), nq, m, np.ones(m, int), 100.0,
-        np.full(nq, 150.0))
+    rand = random_problem(2048, 3072)
     pdr = to_device(rand, device)
     _, out["c_random"] = compare_loop(
         "(c) random 2048 bidders", pdr, pdr.costs,
@@ -1125,6 +1164,8 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
     require(4 <= len(recs) <= 6, f"{label}: {len(recs)} solvable windows, expected 4 to 6")
     require(len(wids) == len(recs), f"{label}: {len(wids)} window ids for {len(recs)} windows")
     require(launches["auction_bid"] == 0, f"{label}: the single-round K1 ran in the grid")
+    for name in ("auction_loop_batch", "tear_metrics_batch"):
+        require(launches[name] == 0, f"{label}: the batched {name} ran without a mesh")
     for name in ("auction_loop", "tear_metrics"):
         require(launches[name] == sum(r["launches"][name] for r in recs),
                 f"{label}: {name} launches outside the windows' solves")
@@ -1157,8 +1198,8 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
             "window_ids": wids, "launches": launches}
 
 
-def phase4(smi_line):
-    """The tissue through the window grid three ways (GRID_RUNS)."""
+def grid_tissue(smi_line):
+    """Phase 4's tissue collapsed to metacells: (mc_ref, mc_align)."""
     from same_tpu_torch import greedy_triangle_collapse
 
     t0 = time.time()
@@ -1171,6 +1212,11 @@ def phase4(smi_line):
         f"{len(mc_ref.metacell_df)} / {len(mc_align.metacell_df)} metacells in "
         f"{time.time() - t0:.1f}s; window {GRID_OPTIM['window_size']}, overlap "
         f"{GRID_OPTIM['overlap']}, dp {GRID_OPTIM['delaunay_penalty']:g}; {smi_line}")
+    return mc_ref, mc_align
+
+
+def phase4(mc_ref, mc_align):
+    """The tissue through the window grid three ways (GRID_RUNS)."""
     runs = [grid_run(mc_ref, mc_align, label, solver, device_knn)
             for label, solver, device_knn in GRID_RUNS]
     seq, pipe, dev = runs
@@ -1204,6 +1250,462 @@ def phase4(smi_line):
         f"Sinkhorn start + device kNN {dev['wall']:.2f}s (repair budget "
         f"{GRID_REPAIR_BUDGET_S:g}s a window)")
     return runs
+
+
+# ----------------------------------------------------------------------------
+# Phase 6: the batched window solve (sliding_window_matching(mesh=...))
+# ----------------------------------------------------------------------------
+
+class MeshSpy:
+    """Record what the batched path did: the prepared windows and results of
+    ``parallel.solve_windows_sharded`` and each ``run_tearing_device_batch``
+    call (its arguments and per-window data), for the ``with`` block."""
+
+    def __enter__(self):
+        from same_tpu_torch import parallel
+        from same_tpu_torch.solver import tearing_device
+
+        self.parallel, self.td = parallel, tearing_device
+        self.orig_sharded = parallel.solve_windows_sharded
+        self.orig_batch = tearing_device.run_tearing_device_batch
+        self.prepared, self.results, self.batches = [], [], []
+
+        def sharded(prepared, *a, **k):
+            self.prepared = list(prepared)
+            self.results = self.orig_sharded(prepared, *a, **k)
+            return self.results
+
+        def batch(*a, **k):
+            out = self.orig_batch(*a, **k)
+            self.batches.append({"args": a, "kwargs": k, "datas": out})
+            return out
+
+        parallel.solve_windows_sharded = sharded
+        tearing_device.run_tearing_device_batch = batch
+        return self
+
+    def __exit__(self, *exc):
+        self.parallel.solve_windows_sharded = self.orig_sharded
+        self.td.run_tearing_device_batch = self.orig_batch
+        return False
+
+
+def mesh_grid_run(mc_ref, mc_align, seq):
+    """(f) The tissue through ``sliding_window_matching(mesh=make_mesh())``,
+    the kernels' counts from 0, held against phase 4's sequential run."""
+    import torch
+
+    from same_tpu_torch import kernels, merge_window_matches_unique_ref
+    from same_tpu_torch import sliding_window_matching
+    from same_tpu_torch.kernels.auction_loop import batch_capacity
+    from same_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    require(len(mesh) == 1, f"make_mesh() gave {len(mesh)} devices; the smoke needs one card")
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with MeshSpy() as spy:
+        matches = sliding_window_matching(
+            mc_ref, mc_align, optim_params=GRID_OPTIM,
+            solver_params=dict(GRID_SOLVER, tpu_pipeline_windows=1), mesh=mesh,
+            verbose=False,
+        )
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    merged = merge_window_matches_unique_ref([matches], cell_id_col="metacell_id")
+    wids = [int(w) for w in matches["window_id"].unique()]
+    pws, results = spy.prepared, spy.results
+    buckets = [(len(b["datas"]), list(b["args"][0][0].costs.shape), b["args"][0][0].n_slots)
+               for b in spy.batches]
+    log(f"[phase 6] (f) mesh grid: wall {wall:.2f}s, {len(pws)} windows {wids}, batches "
+        f"(windows, [n_pad, C], S) {buckets}, {len(matches)} rows, {len(merged)} after the "
+        f"merge; launches {json.dumps(launches)}")
+
+    # Launch counts: one K5 call and one K6 launch a tear round of each
+    # batch, K5 in as many launches as co-residency needs; no solo solve
+    # except an eps-retry re-solve.
+    k5_calls = sum(max(d["rounds_used"] for d in b["datas"]) for b in spy.batches)
+    k5_want = 0
+    for b in spy.batches:
+        p0 = b["args"][0][0]
+        per_launch, _g = batch_capacity(p0.costs.shape[0], p0.n_slots, mesh[0])
+        for r in range(max(d["rounds_used"] for d in b["datas"])):
+            running = sum(d["rounds_used"] > r for d in b["datas"])
+            k5_want += -(-running // per_launch)
+    retries = [i for i, res in enumerate(results) if "eps_retry" in res.info]
+    log(f"[phase 6] (f) batch tear rounds {k5_calls}; K5 launches {launches['auction_loop_batch']} "
+        f"(expected {k5_want}), K6 launches {launches['tear_metrics_batch']}; eps-retry "
+        f"re-solves {retries}, solo auction_loop launches {launches['auction_loop']}")
+    require(launches["auction_loop_batch"] == k5_want > 0,
+            f"mesh grid: K5 launched {launches['auction_loop_batch']} times, expected {k5_want}")
+    require(launches["tear_metrics_batch"] == k5_calls,
+            f"mesh grid: K6 launched {launches['tear_metrics_batch']} times for {k5_calls} rounds")
+    require(launches["tear_metrics"] == 0 or retries, "mesh grid: the solo K2 ran during separation")
+    require(launches["auction_loop"] == 0 or retries,
+            "mesh grid: a solo auction_loop ran during separation without an eps retry")
+    require(launches["auction_bid"] == 0, "mesh grid: the single-round K1 ran")
+
+    # Against phase 4's sequential run.
+    require(sorted(wids) == sorted(seq["window_ids"]),
+            f"mesh grid: window ids {wids} vs sequential {seq['window_ids']}")
+    pairs = set(zip(merged["Aligned_metacell_id"], merged["Ref_metacell_id"]))
+    pairs_seq = set(zip(seq["merged"]["Aligned_metacell_id"], seq["merged"]["Ref_metacell_id"]))
+    denom = max(len(pairs), len(pairs_seq), 1)
+    agree = len(pairs & pairs_seq) / denom
+    log(f"[phase 6] (f) merged matches {len(merged)} vs sequential {len(seq['merged'])}; "
+        f"merged-pair agreement {agree:.4f} (gate 0.90)")
+    require(abs(len(merged) - len(seq["merged"])) <= 0.01 * denom + 2,
+            f"mesh grid: {len(merged)} merged matches vs {len(seq['merged'])} sequential")
+    require(agree >= 0.90, f"mesh grid: merged-pair agreement {agree:.4f} < 0.90")
+    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
+        require(merged[col].is_unique, f"mesh grid: {col} repeats in the merged frame")
+
+    seq_by_size = {(r["n_mov_in"], r["n_ref_in"]): r for r in seq["records"]}
+    recs = []
+    for i, (pw, res) in enumerate(zip(pws, results)):
+        slot_ref = pw.problem.slot_ref
+        cap = np.bincount(slot_ref[slot_ref >= 0], minlength=pw.problem.n_ref)
+        used = np.bincount(res.match_ref[res.match_ref >= 0], minlength=pw.problem.n_ref)
+        n = int(pw.problem.n_aligned)
+        matched = int((res.match_ref >= 0).sum())
+        rec = {
+            "n": n, "shape": list(pw.problem.costs.shape), "T": int(len(pw.tris)),
+            "tear_rounds": int(res.tear_rounds), "matches": matched,
+            "objective": float(res.objective), "obj_lb": float(pw.obj_lb),
+            "flip_fraction": float(res.flip_fraction),
+            "device_time": float(pw.stage_times.get("device_time", 0.0)),
+            "repair": float(res.info.get("repair_time") or 0.0),
+        }
+        recs.append(rec)
+        s = seq_by_size.get((len(pw.aligned_df), len(pw.ref_df)))
+        log(f"[phase 6] (f)   window {i}: n {n}, [n_pad, C] {rec['shape']}, T {rec['T']}: tear "
+            f"rounds {rec['tear_rounds']}, matches {matched}, flip {rec['flip_fraction']:.4f}, "
+            f"objective {rec['objective']:.1f} (lower bound {rec['obj_lb']:.1f}); batch "
+            f"device_time share {rec['device_time']:.3f}s, repair {rec['repair']:.2f}s"
+            + ("" if s is None else f"; sequential: tear rounds {s['tear_rounds']}, matches "
+               f"{s['matches']}, device_time {s['device_time']:.3f}s, repair {s['repair']:.2f}s"))
+        what = f"mesh grid, window {i}"
+        require(int((used > cap).sum()) == 0, f"{what}: refs over capacity")
+        require(np.isfinite(rec["objective"]) and rec["objective"] >= rec["obj_lb"],
+                f"{what}: objective {rec['objective']} against lower bound {rec['obj_lb']}")
+        require(0 < matched <= n and 0.0 <= rec["flip_fraction"] <= 1.0,
+                f"{what}: {matched} matches, flip fraction {rec['flip_fraction']}")
+    batch_dev = sum(b["datas"][0]["device_time"] * len(b["datas"]) for b in spy.batches)
+    seq_dev = sum(r["device_time"] for r in seq["records"])
+    seq_rep = sum(r["repair"] for r in seq["records"])
+    log(f"[phase 6] (f) grid wall: mesh {wall:.2f}s vs sequential {seq['wall']:.2f}s; "
+        f"separation device_time: batch {batch_dev:.3f}s vs sequential sum {seq_dev:.3f}s; "
+        f"repair sum {sum(r['repair'] for r in recs):.2f}s vs {seq_rep:.2f}s")
+    return {"wall": wall, "launches": launches, "spy": spy, "records": recs,
+            "batch_device_time": batch_dev, "agreement": agree}
+
+
+def stacked(pws, device):
+    """The prepared windows' problems stacked on a leading axis, on ``device``."""
+    import torch
+
+    from same_tpu_torch.parallel import stack_problems
+
+    costs, slots, valid, nm, slot_rows, slot_cols = stack_problems([p.problem for p in pws])
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    return {
+        "costs": up(costs, torch.float32), "slots": up(slots, torch.int32),
+        "valid": up(valid, torch.bool), "nm": up(nm, torch.float32),
+        "slot_rows": up(slot_rows, torch.int32), "slot_cols": up(slot_cols, torch.int32),
+        "pair_idx": up(np.stack([p.problem.pair_idx for p in pws]), torch.int32),
+        "cand_ref": up(np.stack([p.problem.cand_ref for p in pws]), torch.int32),
+    }
+
+
+def copies_of(pd, copies):
+    """``copies`` copies of one problem on the card, stacked as K5 takes them."""
+    return {"costs": pd.costs.expand(copies, -1, -1).contiguous(),
+            "slots": pd.slots.expand(copies, -1, -1).contiguous(),
+            "valid": pd.valid.expand(copies, -1, -1).contiguous(),
+            "nm": pd.nm_cost.expand(copies, -1).contiguous(),
+            "slot_rows": pd.slot_rows.expand(copies, -1, -1).contiguous(),
+            "slot_cols": pd.slot_cols.expand(copies, -1, -1).contiguous()}
+
+
+def max_abs_diff(pairs):
+    """Largest absolute difference over (a, b) tensor pairs, as a float."""
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def require_same_batch(tag, k, p, windows):
+    """Two ``auction_loop_batch`` results agree on the listed windows: choice,
+    prices and owners bit-equal, rounds, phase and polish identical."""
+    for b in windows:
+        require((k.rounds[b], k.phase[b], k.polish[b]) == (p.rounds[b], p.phase[b], p.polish[b]),
+                f"K5 {tag} window {b}: rounds/phase/polish {k.rounds[b]}/{k.phase[b]}/"
+                f"{k.polish[b]} vs {p.rounds[b]}/{p.phase[b]}/{p.polish[b]}")
+        for f in ("choice", "prices", "owner"):
+            require_equal(f"K5 {tag} window {b} {f}", getattr(k, f)[b], getattr(p, f)[b])
+
+
+def compare_batch_to_solo(tag, st, prices0, sched, budget, patience, tol, windows=None):
+    """K5 on a stack against one solo ``auction_loop`` launch a window (and
+    nothing else): choice, prices and owners bit-equal, rounds, phase and
+    polish identical. Returns (K5 result, its counters, solo results)."""
+    import importlib
+
+    import torch
+
+    tal = importlib.import_module("same_tpu_torch.kernels.auction_loop")
+    B = st["costs"].shape[0]
+    k = tal.auction_loop_batch(
+        st["costs"], st["slots"], st["valid"], st["nm"], prices0, sched, budget,
+        slot_rows=st["slot_rows"], slot_cols=st["slot_cols"], obj_patience=patience,
+        obj_tol=tol, windows=windows)
+    stats = dict(tal.auction_loop_batch.last_stats)
+    solo = []
+    for b in range(B) if windows is None else windows:
+        s = tal.auction_loop(
+            st["costs"][b], st["slots"][b], st["valid"][b], st["nm"][b], prices0[b],
+            sched[b], budget, slot_rows=st["slot_rows"][b], slot_cols=st["slot_cols"][b],
+            obj_patience=patience, obj_tol=tol[b] if np.ndim(tol) else tol)
+        torch.cuda.synchronize()
+        require((k.rounds[b], k.phase[b], k.polish[b]) == (s.rounds, s.phase, s.polish),
+                f"K5 {tag} window {b}: rounds/phase/polish {k.rounds[b]}/{k.phase[b]}/"
+                f"{k.polish[b]} vs solo {s.rounds}/{s.phase}/{s.polish}")
+        for f in ("choice", "prices", "owner"):
+            require_equal(f"K5 {tag} window {b} {f}", getattr(k, f)[b], getattr(s, f))
+        solo.append(s)
+    return k, stats, solo
+
+
+def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
+    """The batched window solve: K5 and K6 against their solo kernels and
+    plain versions, the batched tear loop against the solo loops, and the
+    tissue through ``sliding_window_matching(mesh=make_mesh())``."""
+    import torch
+
+    from same_tpu_torch.kernels import auction_loop, tear_metrics
+    from same_tpu_torch.kernels.auction_loop import (
+        auction_loop_batch, auction_loop_batch_plain, batch_capacity,
+    )
+    from same_tpu_torch.kernels.tear_metrics import (
+        tear_metrics_batch, tear_metrics_batch_plain,
+    )
+    from same_tpu_torch.models.assignment import to_device
+    from same_tpu_torch.solver.auction import default_eps_schedule, natural_stop_args
+    from same_tpu_torch.solver.tearing_device import round_budget, run_tearing_device
+
+    mesh = mesh_grid_run(mc_ref, mc_align, seq)
+    spy = mesh["spy"]
+    out = {"mesh": mesh}
+
+    # (a) K5 on the largest bucket's windows, cold on the full schedule at
+    # the batch's budget, against one solo launch a window and against its
+    # plain version.
+    batch = max(spy.batches, key=lambda b: len(b["datas"]))
+    pws = [next(p for p in spy.prepared if p.problem is prob) for prob in batch["args"][0]]
+    B = len(pws)
+    n_pad, C = pws[0].problem.costs.shape
+    S = pws[0].problem.n_slots
+    st = stacked(pws, device)
+    budget = round_budget(n_pad, C, B)
+    sched = np.stack([default_eps_schedule(p.problem, p.eps_solver) for p in pws])
+    stop = [natural_stop_args(n_pad, p.eps_solver, 128) for p in pws]
+    tol = np.asarray([s[1] for s in stop], np.float32)
+    zeros = torch.zeros((B, S + 1), dtype=torch.float32, device=device)
+    k, stats, solo = compare_batch_to_solo("(a)", st, zeros, sched, budget, 128, tol)
+    per_launch, g = batch_capacity(n_pad, S, device)
+    args = (st["costs"], st["slots"], st["valid"], st["nm"], zeros, sched, budget)
+    kw = dict(slot_rows=st["slot_rows"], slot_cols=st["slot_cols"], obj_patience=128,
+              obj_tol=tol)
+    # The plain version on the same inputs, once: held to K5, then its time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk = auction_loop_batch_plain(*args, **kw)
+    torch.cuda.synchronize()
+    t_p = (time.perf_counter() - t0) * 1e3
+    require_same_batch("(a) vs plain", k, pk, range(B))
+    outs = ("choice", "prices", "owner")
+    err = max_abs_diff([(getattr(k, f)[b], getattr(s, f)) for b, s in enumerate(solo) for f in outs]
+                       + [(getattr(k, f), getattr(pk, f)) for f in outs])
+    t_k = wall_ms(lambda: auction_loop_batch(*args, **kw))
+    t_solo = wall_ms(lambda: [
+        auction_loop(
+            st["costs"][b], st["slots"][b], st["valid"][b], st["nm"][b], zeros[b], sched[b],
+            budget, slot_rows=st["slot_rows"][b], slot_cols=st["slot_cols"][b],
+            obj_patience=128, obj_tol=tol[b]) for b in range(B)])
+    Ps = st["slot_rows"].shape[2]
+    nbytes = sum(
+        loop_bytes(n_pad, C, S, Ps, {key: (v[b] if isinstance(v, list) else v)
+                                     for key, v in stats.items()}, 4 * (S + 1))
+        for b in range(B))
+    b_ms = bound_ms(nbytes)
+    log(f"[phase 6] (a) K5 on {B} windows of [{n_pad}, {C}], S = {S} (grid {g} blocks a "
+        f"window, {per_launch} windows a launch), cold, full schedule, budget {budget}: "
+        f"bit-equal to {B} solo launches and to the plain version (max abs err {err}); rounds "
+        f"{k.rounds.tolist()}; K5 {t_k:.3f} ms, {B} solo launches {t_solo:.3f} ms, plain "
+        f"{t_p:.1f} ms (median of 5, 5; one call); bound {nbytes / 1e6:.2f} MB = {b_ms:.4f} ms "
+        f"(B x the per-window counters); {smi_line}")
+    out["k5"] = {"err": err, "ms": t_k, "solo_ms": t_solo, "plain_ms": t_p, "bound_ms": b_ms,
+                 "windows": B, "rounds": k.rounds.tolist(), "grid": g,
+                 "windows_per_launch": per_launch}
+
+    # (b) K5 against its plain version on three 144-point windows.
+    smalls = [small_window_problem(seed)[0] for seed in (7, 8, 9)]
+    shapes = {(p.costs.shape, p.n_slots) for p in smalls}
+    require(len(shapes) == 1, f"(b): the small windows span buckets {shapes}")
+    sp = [to_device(p, device) for p in smalls]
+    sst = {f: torch.stack([getattr(p, f) for p in sp]) for f in (
+        "costs", "slots", "valid", "nm_cost", "slot_rows", "slot_cols")}
+    ssched = np.stack([default_eps_schedule(p, 1e-3) for p in smalls])
+    s_zeros = torch.zeros((3, smalls[0].n_slots + 1), dtype=torch.float32, device=device)
+    for patience in (0, 128):
+        sargs = (sst["costs"], sst["slots"], sst["valid"], sst["nm_cost"], s_zeros, ssched, 20000)
+        skw = dict(slot_rows=sst["slot_rows"], slot_cols=sst["slot_cols"],
+                   obj_patience=patience,
+                   obj_tol=natural_stop_args(smalls[0].costs.shape[0], 1e-3, patience)[1])
+        kk = auction_loop_batch(*sargs, **skw)
+        pp = auction_loop_batch_plain(*sargs, **skw)
+        torch.cuda.synchronize()
+        require_same_batch(f"(b) patience {patience} vs plain", kk, pp, range(3))
+        log(f"[phase 6] (b) K5 on three 144-point windows [{smalls[0].costs.shape[0]}, "
+            f"{smalls[0].costs.shape[1]}], patience {patience}: bit-equal to the plain version, "
+            f"rounds {kk.rounds.tolist()}")
+
+    # (c) More windows than one launch holds: copies of the LUAD window.
+    lp = to_device(luad_pw.problem, device)
+    ln, lC = luad_pw.problem.costs.shape
+    lS = luad_pw.problem.n_slots
+    l_per_launch, lg = batch_capacity(ln, lS, device)
+    copies = max(10, l_per_launch + 1)
+    eps = luad_pw.eps_solver
+    lsched = np.asarray([eps * 64, eps * 8, eps], np.float32)
+    lsched = np.tile(np.concatenate([lsched, np.full(13, lsched[-1], np.float32)]), (copies, 1))
+    lstop = natural_stop_args(ln, float(lsched[0, -1]), 128)
+    lprices = torch.as_tensor(luad_pw.prices0, dtype=torch.float32).to(device)
+    lst = copies_of(lp, copies)
+    before = auction_loop_batch.launches
+    kc = auction_loop_batch(lst["costs"], lst["slots"], lst["valid"], lst["nm"],
+                            lprices.expand(copies, -1).contiguous(), lsched, 500000,
+                            slot_rows=lst["slot_rows"], slot_cols=lst["slot_cols"],
+                            obj_patience=lstop[0], obj_tol=lstop[1])
+    n_launches = auction_loop_batch.launches - before
+    one = auction_loop(
+        lp.costs, lp.slots, lp.valid, lp.nm_cost, lprices, lsched[0], 500000,
+        slot_rows=lp.slot_rows, slot_cols=lp.slot_cols, obj_patience=lstop[0],
+        obj_tol=lstop[1])
+    torch.cuda.synchronize()
+    for b in range(copies):
+        require((kc.rounds[b], kc.phase[b], kc.polish[b]) == (one.rounds, one.phase, one.polish),
+                f"K5 (c) copy {b}: rounds/phase/polish differ from the solo launch")
+        for f in ("choice", "prices", "owner"):
+            require_equal(f"K5 (c) copy {b} {f}", getattr(kc, f)[b], getattr(one, f))
+    require(n_launches == -(-copies // l_per_launch) >= 2,
+            f"K5 (c): {n_launches} launches for {copies} windows at {l_per_launch} a launch")
+    log(f"[phase 6] (c) K5 on {copies} copies of the LUAD window ([{ln}, {lC}], S = {lS}, grid "
+        f"{lg} blocks a window, {l_per_launch} windows a launch): {n_launches} launches, every "
+        f"copy bit-equal to the solo launch ({one.rounds} rounds)")
+    # A window wider than the batch kernel's co-resident grid: both paths
+    # cap g there, so K5 still runs it, bit-equal to the solo launch.
+    wide_p = random_problem(2048, 72000)
+    wide = to_device(wide_p, device)
+    wn, wS = wide_p.costs.shape[0], wide_p.n_slots
+    w_per_launch, wg = batch_capacity(wn, wS, device)
+    kwide, _stats, _solo = compare_batch_to_solo(
+        "(c) wide", copies_of(wide, 2),
+        torch.zeros((2, wS + 1), dtype=torch.float32, device=device),
+        np.tile(default_eps_schedule(wide_p, 0.05), (2, 1)), 20000, 0, 0.0)
+    log(f"[phase 6] (c) K5 on 2 copies of a window of {wn} bidders among S = {wS} slots "
+        f"(widest phase {-(-(wS + 1) // 256)} blocks, grid {wg}, {w_per_launch} a launch): "
+        f"bit-equal to the solo launch ({kwide.rounds.tolist()} rounds)")
+
+    # (d) K6 on the bucket's windows against solo K2 launches and its plain
+    # version, at (a)'s end state and a sparse 75.0 surcharge.
+    T_list = [len(p.tris) for p in pws]
+    T_pad = -(-max(T_list) // 128) * 128
+    m = max(len(p.ref_coords) for p in pws)
+    tris = np.zeros((B, T_pad, 3), np.int32)
+    src = np.zeros((B, T_pad), np.int32)
+    ref_xy = np.zeros((B, m, 2), np.float32)
+    for b, p in enumerate(pws):
+        tris[b, :T_list[b]] = p.tris
+        src[b, :T_list[b]] = p.source_signs
+        ref_xy[b, :len(p.ref_coords)] = p.ref_coords
+    rng = np.random.default_rng(1)
+    extra = np.zeros((B, n_pad, C), np.float32)
+    extra[rng.random((B, n_pad, C)) < 0.01] = 75.0
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    tri_mask = up(np.arange(T_pad)[None, :] < np.asarray(T_list)[:, None], torch.bool)
+    k6_args = (st["costs"], up(extra, torch.float32), st["slots"], st["valid"], st["nm"],
+               st["pair_idx"], st["cand_ref"], up(tris, torch.int32), tri_mask,
+               up(src, torch.int32), up(ref_xy, torch.float32), k.prices, k.choice)
+    got = tear_metrics_batch(*k6_args)
+    plain = tear_metrics_batch_plain(*k6_args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("checked", "flipped", "vmove"), got, plain):
+        require_equal(f"K6 (d) {name} vs plain", a, b_)
+    pairs6 = list(zip(got, plain))
+    for b in range(B):
+        T = T_list[b]
+        one_k2 = tear_metrics(*(x[b] for x in k6_args[:7]), k6_args[7][b, :T],
+                              k6_args[8][b, :T], k6_args[9][b, :T],
+                              up(pws[b].ref_coords, torch.float32), k.prices[b], k.choice[b])
+        torch.cuda.synchronize()
+        for name, a, b_ in zip(("checked", "flipped", "vmove"), got, one_k2):
+            require_equal(f"K6 (d) window {b} {name} vs K2", a[b, :T], b_)
+            pairs6.append((a[b, :T], b_))
+        require(not bool(got[0][b, T:].any()), f"K6 (d) window {b}: a padded triangle checked")
+    t6 = median_ms(lambda: tear_metrics_batch(*k6_args))
+    t6_p = median_ms(lambda: tear_metrics_batch_plain(*k6_args), reps=10, warmup=1)
+    n6 = tensor_bytes(*k6_args, *got)
+    b6 = bound_ms(n6)
+    err6 = max_abs_diff(pairs6)
+    log(f"[phase 6] (d) K6 on {B} windows, T = {T_list} padded to {T_pad}: bit-equal to "
+        f"{B} solo K2 launches and to the plain version (max abs err {err6}); {int(got[0].sum())} checked, "
+        f"{int(got[1].sum())} flipped; kernel {t6:.4f} ms (median of 60), plain {t6_p:.3f} ms "
+        f"(median of 10); bound {n6 / 1e6:.3f} MB = {b6 * 1e3:.3f} us; {smi_line}")
+    out["k6"] = {"err": err6, "ms": t6, "plain_ms": t6_p, "bound_ms": b6}
+
+    # (e) Each batch of the mesh run against solo loops given its budget.
+    n_solo = 0
+    for bt in spy.batches:
+        problems, tris_l, tw_l, src_l, ref_l = bt["args"]
+        kw6 = bt["kwargs"]
+        for b, data in enumerate(bt["datas"]):
+            require(not data["time_limit_reached"], "(e): the batch hit its deadline")
+            solo_d = run_tearing_device(
+                problems[b], tris_l[b], tw_l[b], src_l[b], ref_l[b],
+                kw6["delaunay_penalties"][b], kw6["allowed_flip_fractions"][b],
+                penalty_coeff=kw6["penalty_coeffs"][b], max_cuts=kw6["max_cuts"],
+                max_cuts_per_round=kw6["max_cuts_per_round"],
+                max_tear_rounds=kw6["max_tear_rounds"], eps_final=kw6["eps_finals"][b],
+                eps_scaling=kw6["eps_scaling"], hard=kw6["hards"][b],
+                prices0=kw6["prices0_list"][b], plateau_patience=kw6["plateau_patiences"][b],
+                plateau_tol=kw6["plateau_tols"][b], obj_patience=kw6["obj_patience"],
+                mip_gap=kw6["mip_gaps"][b], device=device, max_rounds=data["max_rounds"],
+                schedule_len=data["schedule_len"],
+            )
+            require(solo_d["rounds_used"] == data["rounds_used"],
+                    f"(e) window {b}: {data['rounds_used']} tear rounds batched, "
+                    f"{solo_d['rounds_used']} solo")
+            for key in ("choices", "flipped", "checked", "auction_rounds"):
+                require(np.array_equal(solo_d[key], data[key]),
+                        f"(e) window {b}: {key} differ between the batch and the solo loop")
+            for key in ("cuts_added", "cut_tris"):
+                require(solo_d[key] == data[key], f"(e) window {b}: {key} differ")
+            require([list(v) for v in solo_d["cut_pairs"]] == [list(v) for v in data["cut_pairs"]],
+                    f"(e) window {b}: cut registries differ")
+            n_solo += 1
+    log(f"[phase 6] (e) run_tearing_device_batch == run_tearing_device given the batch's "
+        f"budget and schedule length, for all {n_solo} windows: identical incumbents before "
+        f"repair and cut registries")
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -1322,8 +1824,8 @@ def main():
     ap.add_argument("--no-slice", action="store_true",
                     help="stop after phase 2 (debugging; ends with \"ok\": false)")
     ap.add_argument("--grid-only", action="store_true",
-                    help="phases 0-1, the K3 and K4 checks of phase 2, and phase 4 "
-                         "(debugging; ends with \"ok\": false)")
+                    help="phases 0-1, the K3 and K4 checks of phase 2, and phases 4 "
+                         "and 6 (debugging; ends with \"ok\": false)")
     ap.add_argument("--synthetic", action="store_true",
                     help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
                          "minutes more)")
@@ -1354,7 +1856,9 @@ def main():
     not_ok = json.dumps({"ok": False, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}})
     if args.grid_only:
-        phase4(smi_line)
+        mc_gref, mc_galign = grid_tissue(smi_line)
+        grid = phase4(mc_gref, mc_galign)
+        phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
         if args.synthetic:
             phase5()
         print(smi_line)
@@ -1372,7 +1876,9 @@ def main():
         return 2
     summary = phase3(mc_ref, mc_align, types, full=args.cells == LUAD_CELLS,
                      obj_lb=pw.obj_lb)
-    grid = phase4(smi_line)
+    mc_gref, mc_galign = grid_tissue(smi_line)
+    grid = phase4(mc_gref, mc_galign)
+    batched = phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
     if args.synthetic:
         phase5()
     grid_launches = {label: run["launches"] for (label, _s, _d), run in zip(GRID_RUNS, grid)}
@@ -1431,6 +1937,33 @@ def main():
             "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
             "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
             "bit_equal_to_plain": k4["bit_equal"],
+        },
+    ]
+    # K5 and K6 run on the batched path: their launches are those of the
+    # mesh grid (phase 6 (f)); their times are at its largest batch.
+    mesh_launches = batched["mesh"]["launches"]
+    k5, k6 = batched["k5"], batched["k6"]
+    kernels += [
+        {
+            "name": "auction_loop_batch", "route": "cuda",
+            "source": "same_tpu_torch/csrc/auction_loop.cu",
+            "replaces": "same_tpu/solver/tearing_device.py:710",
+            "also_replaces": "same_tpu/parallel/shard.py:120",
+            "launches": mesh_launches["auction_loop_batch"],
+            "max_abs_err": k5["err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+            "bound_ms": k5["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "windows": k5["windows"], "solo_launches_ms": k5["solo_ms"],
+            "rounds": k5["rounds"], "grid_per_window": k5["grid"],
+            "windows_per_launch": k5["windows_per_launch"],
+        },
+        {
+            "name": "tear_metrics_batch", "route": "cuda",
+            "source": "same_tpu_torch/csrc/tear_metrics.cu",
+            "replaces": "same_tpu/solver/tearing_device.py:710",
+            "also_replaces": "same_tpu/solver/tearing_device.py:124",
+            "launches": mesh_launches["tear_metrics_batch"],
+            "max_abs_err": k6["err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+            "bound_ms": k6["bound_ms"], "bound_by": "bytes", "library_ms": None,
         },
     ]
     for kern in kernels[:3]:

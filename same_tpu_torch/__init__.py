@@ -13,11 +13,14 @@ the first CUDA card through hand-written Hopper kernels, built from
 persistent launch) and ``tear_metrics`` (the tear round's flip test and
 regret), and where a window selects them ``radius_knn`` (the device kNN)
 and ``sinkhorn_sparse`` (the Sinkhorn warm start). A tissue larger than one
-window goes through ``sliding_window_matching``. The entry points need a
+window goes through ``sliding_window_matching``; with
+``mesh=parallel.make_mesh()`` its windows are solved as batches
+(``auction_loop_batch`` and ``tear_metrics_batch``). The entry points need a
 card unless they are given ``device="cpu"``, which runs the kernels' plain
 PyTorch versions.
 """
 
+from . import parallel
 from .candidates import (
     find_knn_with_cell_type_priority,
     find_knn_within_radius,

@@ -1,13 +1,18 @@
 // `auction_loop`: one whole auction solve (every epsilon phase, the polish
 // repeats, the boundary steps and the final placement) in ONE persistent
-// cooperative launch.
+// cooperative launch; and K5 `auction_loop_batch`: the same solve for each
+// window of a batch of same-shape windows ([B, n, C] stacks), in one
+// cooperative launch per batch (or a few, when the batch's blocks cannot all
+// be co-resident).
 //
 // Replaces
 //   - examples/bench_pallas.py:122 (the Pallas bid compute, through the
 //     shared round bodies of auction_round.cuh, as K1 did);
 //   - same_tpu/solver/auction.py:66-442 (`_auction_run`: the lax.while_loop
 //     over bidding rounds with its boundary step, 4 reverse drains, phase /
-//     polish / stall control and the 4 final placement passes).
+//     polish / stall control and the 4 final placement passes);
+//   - K5: that loop vmapped over a window batch, same_tpu/parallel/shard.py:
+//     111-131 and same_tpu/solver/tearing_device.py:701-710.
 // Its plain version is `auction_loop_plain` (same_tpu_torch/kernels/
 // auction_loop.py), the port's Python loop; the control phase below mirrors
 // that module's `_control_step` line for line.
@@ -37,8 +42,9 @@
 //     objective partials are double-buffered by round parity, so the next
 //     round may start while a slow block still reads the last one's;
 //   - the grid is never larger than the co-resident maximum (queried once,
-//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs) and no larger than
-//     the widest phase needs: extra blocks would only add barrier arrivals.
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, the smaller of the
+//     solo and the batch kernel's) and no larger than the widest phase needs:
+//     extra blocks would only add barrier arrivals.
 //     Every phase loops grid-stride, so any window size works.
 //
 // Semantics kept exactly:
@@ -59,6 +65,15 @@
 //     integer rule (it - phase_start) / 3 is on non-negative ints.
 //   - the placement is folded into the tail as 4 passes of two phases each,
 //     with an atomicMin winner per slot.
+//
+// K5 runs the same `solve` body on each window's own range of g blocks, g
+// being the solo grid of its (n, S): the grid-stride partitions, the barrier
+// arrivals and the fixed-order objective sum depend only on (block, g), so
+// each window's choice, prices, owners, rounds, phase and polish are those of
+// a solo launch on the same inputs. Windows share no barrier: a window that
+// finishes early lets its blocks leave, and the windows of a tear loop that
+// has stopped are not listed at all. What bounds it is what bounds one solve
+// (the barriers), now paid once for the batch rather than once per window.
 //
 // Memory order: a grid barrier is __syncthreads, a __threadfence and an
 // arrival on a global counter by one thread per block, a spin on a volatile
@@ -116,13 +131,16 @@ struct LoopArgs {
   unsigned int* bar;          // [2] barrier count and generation
 };
 
-__device__ __forceinline__ void grid_barrier(unsigned int* bar) {
+// Barrier over the `nblocks` blocks of one solve (the whole grid of a solo
+// launch, one window's range of a batched launch).
+__device__ __forceinline__ void grid_barrier(unsigned int* bar,
+                                             unsigned int nblocks) {
   __syncthreads();
   if (threadIdx.x == 0) {
     volatile unsigned int* gen = bar + 1;
     unsigned int g = *gen;
     __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+    if (atomicAdd(bar, 1u) == nblocks - 1) {
       atomicExch(bar, 0u);
       __threadfence();
       atomicAdd(bar + 1, 1u);
@@ -208,7 +226,7 @@ __device__ __forceinline__ void control_step(Control& c, bool moved,
 // Release of eps-CS violators and zeroing of unowned prices
 // (auction.py:131-147): two phases.
 __device__ void boundary_release(const LoopArgs& a, float eps, int tid,
-                                 int stride) {
+                                 int stride, int nblocks) {
   const int n = a.n, C = a.C, S = a.S;
   unsigned int n_held = 0;
   for (int b = tid; b < n; b += stride) {
@@ -224,7 +242,7 @@ __device__ void boundary_release(const LoopArgs& a, float eps, int tid,
     }
   }
   count_add(a.held, n_held);
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
   for (int s = tid; s <= S; s += stride) {
     if (s == S) {
       a.owner[S] = -1;
@@ -233,13 +251,13 @@ __device__ void boundary_release(const LoopArgs& a, float eps, int tid,
       a.prices[s] = 0.0f;
     }
   }
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
 }
 
 // One reverse-auction drain (auction.py:164-237): four phases. A win raises
 // the round's moved flag.
 __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
-                             int* moved_flag) {
+                             int nblocks, int* moved_flag) {
   const int n = a.n, C = a.C, S = a.S, Ps = a.Ps;
   // (1) Per bidder: top-2 at the current prices.
   for (int b = tid; b < n; b += stride) {
@@ -249,7 +267,7 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
     a.top_second[b] = isfinite(t.second) ? t.second : t.best;
     a.top_col[b] = t.col;
   }
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
   // (2) Per slot: its best person at exclusive profit; an eligible claim
   // goes into the person's key.
   const float two_eps = __fmul_rn(2.0f, eps);
@@ -285,7 +303,7 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
     }
     a.rev_person[s] = eligible ? person : -1;
   }
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
   // (3) Per slot: the person's highest surplus, then smallest slot, wins.
   // The winner moves the person: its old slot is freed, it takes the column.
   bool any = false;
@@ -305,7 +323,7 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
     a.assigned[person] = a.rev_col[s];
   }
   if (any) *moved_flag = 1;
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
   // (4) Per slot: winners take their person at the attract price; freed and
   // unclaimed unowned slots at zero. The winner resets its person's key.
   for (int s = tid; s <= S; s += stride) {
@@ -323,16 +341,19 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
       a.prices[s] = 0.0f;
     }
   }
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
 }
 
-__global__ void __launch_bounds__(kThreads)
-auction_loop_kernel(LoopArgs a) {
+// One whole solve on blocks [0, nblocks) of its own (`block` is this block's
+// index among them). Every partition of the work and every sum order depends
+// only on (block, nblocks), so a window solved inside a batched launch gives
+// the same bits as a solo launch with a grid of nblocks.
+__device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks) {
   __shared__ float red[kThreads];
   __shared__ Control s_ctl;
   const int n = a.n, C = a.C, S = a.S, P = a.P;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
+  const int tid = block * blockDim.x + threadIdx.x;
+  const int stride = nblocks * blockDim.x;
 
   // Prologue: the working state from the caller's (never written) inputs.
   for (int b = tid; b < n; b += stride) {
@@ -360,7 +381,7 @@ auction_loop_kernel(LoopArgs a) {
     s_ctl = Control{0, 1, 0, 0, 0, 0, 0, inf, inf};
   }
   long long boundary_rounds = 0;
-  grid_barrier(a.bar);
+  grid_barrier(a.bar, nblocks);
 
   while (true) {
     __syncthreads();
@@ -373,9 +394,11 @@ auction_loop_kernel(LoopArgs a) {
 
     if (ctl.boundary) {
       ++boundary_rounds;
-      boundary_release(a, eps, tid, stride);
+      boundary_release(a, eps, tid, stride, nblocks);
       if (a.slot_rows != nullptr) {
-        for (int d = 0; d < 4; ++d) reverse_once(a, eps, tid, stride, moved_flag);
+        for (int d = 0; d < 4; ++d) {
+          reverse_once(a, eps, tid, stride, nblocks, moved_flag);
+        }
       }
     }
 
@@ -394,7 +417,7 @@ auction_loop_kernel(LoopArgs a) {
     }
     if (bid_moved) *moved_flag = 1;
     count_add(a.active, n_active);
-    grid_barrier(a.bar);
+    grid_barrier(a.bar, nblocks);
 
     // Resolve; the next round's flag is zeroed here (its last reader, the
     // control phase of the previous round, is behind the bid barrier).
@@ -410,7 +433,7 @@ auction_loop_kernel(LoopArgs a) {
       }
     }
     count_add(a.resolved, n_resolved);
-    grid_barrier(a.bar);
+    grid_barrier(a.bar, nblocks);
 
     // Settle, and the placement value of the round's state (unplaced
     // bidders at their reservation cost).
@@ -426,23 +449,23 @@ auction_loop_kernel(LoopArgs a) {
     }
     if (a.obj_patience > 0) {
       float part = block_sum(obj, red);
-      if (threadIdx.x == 0) a.partials[par * gridDim.x + blockIdx.x] = part;
+      if (threadIdx.x == 0) a.partials[par * nblocks + block] = part;
     }
-    grid_barrier(a.bar);
+    grid_barrier(a.bar, nblocks);
 
     // Control, in every block from the same global values.
     float cur_obj = inf;
     if (a.obj_patience > 0) {
       float v = 0.0f;
-      for (unsigned int k = threadIdx.x; k < gridDim.x; k += kThreads) {
-        v = __fadd_rn(v, ld_state(a.partials + par * gridDim.x + k));
+      for (int k = threadIdx.x; k < nblocks; k += kThreads) {
+        v = __fadd_rn(v, ld_state(a.partials + par * nblocks + k));
       }
       cur_obj = block_sum(v, red);
     }
     if (threadIdx.x == 0) {
       Control c = ctl;
       bool moved = ld_state(moved_flag) != 0;
-      if (a.trace != nullptr && blockIdx.x == 0) {
+      if (a.trace != nullptr && block == 0) {
         a.trace[2 * c.it] = moved ? 1.0f : 0.0f;
         a.trace[2 * c.it + 1] = cur_obj;
       }
@@ -482,7 +505,7 @@ auction_loop_kernel(LoopArgs a) {
       }
       a.bid_col[b] = col;
     }
-    grid_barrier(a.bar);
+    grid_barrier(a.bar, nblocks);
     for (int s = tid; s <= S; s += stride) other[s] = n;
     for (int b = tid; b < n; b += stride) {
       int col = a.bid_col[b];
@@ -499,7 +522,7 @@ auction_loop_kernel(LoopArgs a) {
     }
     if (tid == 0) a.owner[S] = -1;
     if (k == 0) count_add(a.unplaced, n_unplaced);
-    grid_barrier(a.bar);
+    grid_barrier(a.bar, nblocks);
   }
 
   if (tid == 0) {
@@ -509,7 +532,7 @@ auction_loop_kernel(LoopArgs a) {
     a.stats[2] = c.polish;
     a.stats[3] = boundary_rounds;
     a.stats[4] = static_cast<long long>(ld_state(a.active));
-    a.stats[5] = gridDim.x;
+    a.stats[5] = nblocks;
     a.stats[6] = static_cast<long long>(ld_state(a.unplaced));
     a.stats[7] = static_cast<long long>(ld_state(a.resolved));
     a.stats[8] = static_cast<long long>(ld_state(a.held));
@@ -552,11 +575,90 @@ Layout layout(int n, int S, int grid) {
   return l;
 }
 
-// Co-resident grid of the kernel on the current device, queried once per
-// device. Returns a CUDA error code (cudaErrorNotSupported when the device
-// cannot launch cooperatively).
-int max_grid(int* out) {
-  static int cached[64] = {0};
+// Points the workspace fields of `a` into one solve's workspace `ws`.
+__host__ __device__ void bind_workspace(LoopArgs& a, char* ws, const Layout& l) {
+  a.keys = reinterpret_cast<unsigned long long*>(ws + l.keys);
+  a.pkeys = reinterpret_cast<unsigned long long*>(ws + l.pkeys);
+  a.active = reinterpret_cast<unsigned long long*>(ws + l.active);
+  a.resolved = reinterpret_cast<unsigned long long*>(ws + l.resolved);
+  a.held = reinterpret_cast<unsigned long long*>(ws + l.held);
+  a.unplaced = reinterpret_cast<unsigned long long*>(ws + l.unplaced);
+  a.bid_col = reinterpret_cast<int*>(ws + l.bid_col);
+  a.top_best = reinterpret_cast<float*>(ws + l.top_best);
+  a.top_second = reinterpret_cast<float*>(ws + l.top_second);
+  a.top_col = reinterpret_cast<int*>(ws + l.top_col);
+  a.rev_person = reinterpret_cast<int*>(ws + l.rev_person);
+  a.rev_col = reinterpret_cast<int*>(ws + l.rev_col);
+  a.rev_price = reinterpret_cast<float*>(ws + l.rev_price);
+  a.place_win = reinterpret_cast<int*>(ws + l.place_win);
+  a.moved = reinterpret_cast<int*>(ws + l.moved);
+  a.partials = reinterpret_cast<float*>(ws + l.partials);
+  a.bar = reinterpret_cast<unsigned int*>(ws + l.bar);
+}
+
+__global__ void __launch_bounds__(kThreads) auction_loop_kernel(LoopArgs a) {
+  solve(a, blockIdx.x, gridDim.x);
+}
+
+// K5 `auction_loop_batch`: a batch of same-shape windows stacked on a leading
+// axis, one cooperative launch. Window windows[k] of the launch owns blocks
+// [k * g, (k + 1) * g), g being the solo grid for its (n, S); it has its own
+// barrier words, control, moved flags, objective partials and workspace, and
+// no barrier spans two windows.
+struct BatchArgs {
+  LoopArgs base;            // window 0's pointers and the shared sizes
+  const int* windows;       // [launch windows] batch index of each range
+  const int* max_rounds;    // [B]
+  const int* obj_patience;  // [B]
+  const float* obj_tol;     // [B]
+  const int* warm;          // [B] 1: start from assigned0 / owner0
+  char* workspace;          // [B, ws_stride]
+  long long ws_stride;
+  Layout lay;
+  int g;
+};
+
+__device__ LoopArgs window_args(const BatchArgs& ba, int w) {
+  LoopArgs a = ba.base;
+  const size_t n = a.n, nC = static_cast<size_t>(a.n) * a.C,
+               S1 = static_cast<size_t>(a.S) + 1,
+               SP = static_cast<size_t>(a.S) * a.Ps;
+  a.costs += w * nC;
+  a.slots += w * nC;
+  a.valid += w * nC;
+  a.nm += w * n;
+  if (a.slot_rows != nullptr) {
+    a.slot_rows += w * SP;
+    a.slot_cols += w * SP;
+  }
+  a.eps_sched += static_cast<size_t>(w) * a.P;
+  a.prices0 += w * S1;
+  const bool warm = ba.warm[w] != 0;
+  a.assigned0 = warm ? a.assigned0 + w * n : nullptr;
+  a.owner0 = warm ? a.owner0 + w * S1 : nullptr;
+  a.max_rounds = ba.max_rounds[w];
+  a.obj_patience = ba.obj_patience[w];
+  a.obj_tol = ba.obj_tol[w];
+  a.assigned += w * n;
+  a.prices += w * S1;
+  a.owner += w * S1;
+  a.stats += static_cast<size_t>(w) * 10;
+  a.trace = nullptr;
+  bind_workspace(a, ba.workspace + w * ba.ws_stride, ba.lay);
+  return a;
+}
+
+__global__ void __launch_bounds__(kThreads)
+auction_loop_batch_kernel(BatchArgs ba) {
+  const int k = blockIdx.x / ba.g;
+  const LoopArgs a = window_args(ba, ba.windows[k]);
+  solve(a, blockIdx.x - k * ba.g, ba.g);
+}
+
+// Co-resident grid of `kernel` on the current device, queried once per device
+// into `cached`. Returns a CUDA error code (cudaErrorNotSupported when the
+// device cannot launch cooperatively).
+int max_grid(const void* kernel, int* cached, int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -570,8 +672,8 @@ int max_grid(int* out) {
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, auction_loop_kernel, kThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
   int g = per_sm * sms;
@@ -580,25 +682,64 @@ int max_grid(int* out) {
   return 0;
 }
 
+int solo_max_grid(int* out) {
+  static int cached[64] = {0};
+  return max_grid(reinterpret_cast<const void*>(auction_loop_kernel), cached, out);
+}
+
+int batch_max_grid(int* out) {
+  static int cached[64] = {0};
+  return max_grid(reinterpret_cast<const void*>(auction_loop_batch_kernel), cached, out);
+}
+
+// The grid of a window's solve, solo or batched: no wider than its widest
+// phase needs, and no wider than the co-resident maximum of either kernel, so
+// that a window gets the same g on both paths at every size (the batch kernel
+// holds fewer blocks an SM than the solo one).
 int grid_for(int n, int S, int* grid) {
-  int g = 0;
-  int err = max_grid(&g);
+  int solo = 0, batch = 0;
+  int err = solo_max_grid(&solo);
   if (err != 0) return err;
+  err = batch_max_grid(&batch);
+  if (err != 0) return err;
+  int g = solo < batch ? solo : batch;
   int widest = n > S + 1 ? n : S + 1;
   int need = (widest + kThreads - 1) / kThreads;
   *grid = need < g ? (need > 0 ? need : 1) : g;
   return 0;
 }
 
+// Windows of size (n, S) one batched launch can hold: all their blocks must
+// be co-resident. At least one, as grid_for never exceeds the batch kernel's
+// maximum.
+int batch_capacity(int n, int S, int* per_launch, int* grid) {
+  int err = grid_for(n, S, grid);
+  if (err != 0) return err;
+  int cap = 0;
+  err = batch_max_grid(&cap);
+  if (err != 0) return err;
+  *per_launch = cap / *grid;
+  return 0;
+}
+
 }  // namespace
 
 // Bytes of workspace one solve of this size needs (0 with an error code in
-// *err when the device cannot run the kernel).
+// *err when the device cannot run the kernel). A batched solve takes this
+// many bytes per window.
 extern "C" long long same_auction_loop_workspace(int n, int S, int* err) {
   int grid = 0;
   *err = grid_for(n, S, &grid);
   if (*err != 0) return 0;
   return static_cast<long long>(layout(n, S, grid).total);
+}
+
+// Windows of size (n, S) one batched launch holds (0 with an error code in
+// *err); *grid gets the blocks of one window.
+extern "C" int same_auction_loop_batch_capacity(int n, int S, int* grid, int* err) {
+  int per_launch = 0;
+  *err = batch_capacity(n, S, &per_launch, grid);
+  return *err != 0 ? 0 : per_launch;
 }
 
 extern "C" int same_auction_loop(
@@ -616,7 +757,6 @@ extern "C" int same_auction_loop(
   if (workspace_bytes < static_cast<long long>(l.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  char* ws = static_cast<char*>(workspace);
   LoopArgs a;
   a.costs = costs;
   a.slots = slots;
@@ -642,23 +782,7 @@ extern "C" int same_auction_loop(
   a.owner = owner;
   a.stats = stats;
   a.trace = trace;
-  a.keys = reinterpret_cast<unsigned long long*>(ws + l.keys);
-  a.pkeys = reinterpret_cast<unsigned long long*>(ws + l.pkeys);
-  a.active = reinterpret_cast<unsigned long long*>(ws + l.active);
-  a.resolved = reinterpret_cast<unsigned long long*>(ws + l.resolved);
-  a.held = reinterpret_cast<unsigned long long*>(ws + l.held);
-  a.unplaced = reinterpret_cast<unsigned long long*>(ws + l.unplaced);
-  a.bid_col = reinterpret_cast<int*>(ws + l.bid_col);
-  a.top_best = reinterpret_cast<float*>(ws + l.top_best);
-  a.top_second = reinterpret_cast<float*>(ws + l.top_second);
-  a.top_col = reinterpret_cast<int*>(ws + l.top_col);
-  a.rev_person = reinterpret_cast<int*>(ws + l.rev_person);
-  a.rev_col = reinterpret_cast<int*>(ws + l.rev_col);
-  a.rev_price = reinterpret_cast<float*>(ws + l.rev_price);
-  a.place_win = reinterpret_cast<int*>(ws + l.place_win);
-  a.moved = reinterpret_cast<int*>(ws + l.moved);
-  a.partials = reinterpret_cast<float*>(ws + l.partials);
-  a.bar = reinterpret_cast<unsigned int*>(ws + l.bar);
+  bind_workspace(a, static_cast<char*>(workspace), l);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), st);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -667,6 +791,82 @@ extern "C" int same_auction_loop(
                                   dim3(grid), dim3(kThreads), args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5: solves the windows listed in `windows` (device array of n_windows batch
+// indices) of a [B, ...] stack, in as many consecutive cooperative launches
+// of whole windows as co-residency needs; *launches gets their number. Each
+// listed window's choice, prices, owners and stats row are written; the other
+// rows of the outputs are not touched. `workspace` holds ws_stride bytes per
+// batch window (same_auction_loop_workspace); it is cleared here.
+extern "C" int same_auction_loop_batch(
+    const float* costs, const int* slots, const uint8_t* valid,
+    const float* nm, const int* slot_rows, const int* slot_cols, int Ps,
+    const float* eps_sched, int P, const float* prices0, const int* assigned0,
+    const int* owner0, const int* warm, int B, int n, int C, int S,
+    const int* max_rounds, int max_polish, const int* obj_patience,
+    const float* obj_tol, const int* windows, int n_windows, int* assigned,
+    float* prices, int* owner, long long* stats, void* workspace,
+    long long ws_stride, void* stream, int* launches) {
+  *launches = 0;
+  int grid = 0, per_launch = 0;
+  int err = batch_capacity(n, S, &per_launch, &grid);
+  if (err != 0) return err;
+  Layout l = layout(n, S, grid);
+  if (ws_stride < static_cast<long long>(l.total)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BatchArgs ba;
+  ba.base.costs = costs;
+  ba.base.slots = slots;
+  ba.base.valid = valid;
+  ba.base.nm = nm;
+  ba.base.slot_rows = slot_rows;
+  ba.base.slot_cols = slot_cols;
+  ba.base.eps_sched = eps_sched;
+  ba.base.prices0 = prices0;
+  ba.base.assigned0 = assigned0;
+  ba.base.owner0 = owner0;
+  ba.base.n = n;
+  ba.base.C = C;
+  ba.base.S = S;
+  ba.base.Ps = Ps;
+  ba.base.P = P;
+  ba.base.max_rounds = 0;
+  ba.base.max_polish = max_polish;
+  ba.base.obj_patience = 0;
+  ba.base.obj_tol = 0.0f;
+  ba.base.assigned = assigned;
+  ba.base.prices = prices;
+  ba.base.owner = owner;
+  ba.base.stats = stats;
+  ba.base.trace = nullptr;
+  ba.max_rounds = max_rounds;
+  ba.obj_patience = obj_patience;
+  ba.obj_tol = obj_tol;
+  ba.warm = warm;
+  ba.workspace = static_cast<char*>(workspace);
+  ba.ws_stride = ws_stride;
+  ba.lay = l;
+  ba.g = grid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // Barrier counts start at 0; the rest of the workspace is initialised by
+  // each solve's prologue.
+  cudaError_t e = cudaMemsetAsync(workspace, 0, static_cast<size_t>(B) * ws_stride, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int first = 0; first < n_windows; first += per_launch) {
+    int count = n_windows - first < per_launch ? n_windows - first : per_launch;
+    ba.windows = windows + first;
+    void* args[] = {&ba};
+    e = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(auction_loop_batch_kernel), dim3(count * grid),
+        dim3(kThreads), args, 0, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ++*launches;
+  }
+  return 0;
 }
 
 extern "C" const char* same_cuda_error_string(int err) {

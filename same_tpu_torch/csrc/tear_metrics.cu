@@ -1,10 +1,18 @@
-// K2 `tear_metrics`: the per-tear-round flip test and cheapest-to-move vertex.
+// K2 `tear_metrics`: the per-tear-round flip test and cheapest-to-move vertex;
+// K6 `tear_metrics_batch`: the same for every window of a batch of
+// same-bucket windows ([B, T_pad] padded triangles, [B, n, C] rows, [B, m, 2]
+// ref coordinates), in one launch with blockIdx.y = window.
 //
 // Replaces
 //   - same_tpu/solver/tearing.py:72-104 (`_tear_metrics`, XLA);
 //   - same_tpu/solver/tearing_device.py:124-126 (the flip test) and :233-243
 //     (the regret and `vmove` of the surcharge) inside the fused loop;
-//   - same_tpu/ops/orient.py:52-86 (`matched_triangle_flips`) as used there.
+//   - same_tpu/ops/orient.py:52-86 (`matched_triangle_flips`) as used there;
+//   - K6: the same vmapped over the window batch of
+//     same_tpu/solver/tearing_device.py:514-811 (run_tearing_device_batch).
+//     Per window it is K2's body on the window's own rows, so it gives K2's
+//     bits on the unpadded triangles; padded triangles carry tri_mask 0 and
+//     src 0 and come out unchecked.
 //
 // One thread per triangle:
 //   - gathers match_ref / match_pair of its 3 vertices from choice, cand_ref
@@ -75,18 +83,17 @@ __device__ float vertex_regret(int v, const int* __restrict__ choice,
   return __fsub_rn(held, alt);
 }
 
-__global__ void tear_metrics_kernel(
-    const int* __restrict__ choice, const int* __restrict__ cand_ref,
+// Triangle t of one window: flip test and vmove (the body of K2 and K6).
+__device__ __forceinline__ void triangle_metrics(
+    int t, const int* __restrict__ choice, const int* __restrict__ cand_ref,
     const int* __restrict__ pair_idx, const float* __restrict__ costs,
     const float* __restrict__ extra, const int* __restrict__ slots,
     const uint8_t* __restrict__ valid, const float* __restrict__ nm,
     const float* __restrict__ prices, const int* __restrict__ tris,
     const uint8_t* __restrict__ tri_mask, const int* __restrict__ src,
-    const float* __restrict__ ref_xy, int n, int C, int m, int T,
+    const float* __restrict__ ref_xy, int n, int C, int m,
     uint8_t* __restrict__ checked, uint8_t* __restrict__ flipped,
     int8_t* __restrict__ vmove) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
   int ref[3];
   bool all_matched = tri_mask[t] != 0;
   float reg_min = 0.0f;
@@ -118,6 +125,46 @@ __global__ void tear_metrics_kernel(
   vmove[t] = static_cast<int8_t>(arg);
 }
 
+__global__ void tear_metrics_kernel(
+    const int* __restrict__ choice, const int* __restrict__ cand_ref,
+    const int* __restrict__ pair_idx, const float* __restrict__ costs,
+    const float* __restrict__ extra, const int* __restrict__ slots,
+    const uint8_t* __restrict__ valid, const float* __restrict__ nm,
+    const float* __restrict__ prices, const int* __restrict__ tris,
+    const uint8_t* __restrict__ tri_mask, const int* __restrict__ src,
+    const float* __restrict__ ref_xy, int n, int C, int m, int T,
+    uint8_t* __restrict__ checked, uint8_t* __restrict__ flipped,
+    int8_t* __restrict__ vmove) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  triangle_metrics(t, choice, cand_ref, pair_idx, costs, extra, slots, valid,
+                   nm, prices, tris, tri_mask, src, ref_xy, n, C, m, checked,
+                   flipped, vmove);
+}
+
+// K6: window blockIdx.y of a [B, ...] stack, T triangles (padded) a window.
+__global__ void tear_metrics_batch_kernel(
+    const int* __restrict__ choice, const int* __restrict__ cand_ref,
+    const int* __restrict__ pair_idx, const float* __restrict__ costs,
+    const float* __restrict__ extra, const int* __restrict__ slots,
+    const uint8_t* __restrict__ valid, const float* __restrict__ nm,
+    const float* __restrict__ prices, const int* __restrict__ tris,
+    const uint8_t* __restrict__ tri_mask, const int* __restrict__ src,
+    const float* __restrict__ ref_xy, int n, int C, int S1, int m, int T,
+    uint8_t* __restrict__ checked, uint8_t* __restrict__ flipped,
+    int8_t* __restrict__ vmove) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= T) return;
+  const size_t w = blockIdx.y;
+  const size_t nC = static_cast<size_t>(n) * C;
+  triangle_metrics(t, choice + w * n, cand_ref + w * nC, pair_idx + w * nC,
+                   costs + w * nC, extra + w * nC, slots + w * nC,
+                   valid + w * nC, nm + w * n, prices + w * S1,
+                   tris + w * 3 * T, tri_mask + w * T, src + w * T,
+                   ref_xy + w * 2 * m, n, C, m, checked + w * T,
+                   flipped + w * T, vmove + w * T);
+}
+
 }  // namespace
 
 extern "C" int same_tear_metrics(
@@ -132,6 +179,22 @@ extern "C" int same_tear_metrics(
   tear_metrics_kernel<<<grid, kThreads, 0, st>>>(
       choice, cand_ref, pair_idx, costs, extra, slots, valid, nm, prices, tris,
       tri_mask, src, ref_xy, n, C, m, T, checked, flipped, vmove);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: the same for each window of a [B, ...] stack, one launch, grid.y = B.
+extern "C" int same_tear_metrics_batch(
+    const int* choice, const int* cand_ref, const int* pair_idx,
+    const float* costs, const float* extra, const int* slots,
+    const uint8_t* valid, const float* nm, const float* prices,
+    const int* tris, const uint8_t* tri_mask, const int* src,
+    const float* ref_xy, int B, int n, int C, int S1, int m, int T,
+    uint8_t* checked, uint8_t* flipped, int8_t* vmove, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((T + kThreads - 1) / kThreads, B);
+  tear_metrics_batch_kernel<<<grid, kThreads, 0, st>>>(
+      choice, cand_ref, pair_idx, costs, extra, slots, valid, nm, prices, tris,
+      tri_mask, src, ref_xy, n, C, S1, m, T, checked, flipped, vmove);
   return static_cast<int>(cudaGetLastError());
 }
 

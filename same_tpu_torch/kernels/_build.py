@@ -101,9 +101,10 @@ def check_tensors(what: str, device, spec) -> None:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, **attrs) -> None:
-    """Add one to ``wrapper.launches`` after a launch, and to the calling
-    thread's entry of ``wrapper.launches_by_thread``; set ``attrs`` on it.
+def count_launch(wrapper, n: int = 1, **attrs) -> None:
+    """Add ``n`` (the kernel launches a call made) to ``wrapper.launches``
+    and to the calling thread's entry of ``wrapper.launches_by_thread``; set
+    ``attrs`` on it.
 
     Windows in flight on several host threads (the pipelined window grid)
     launch from each of them, so the counts are updated under a lock and are
@@ -112,9 +113,9 @@ def count_launch(wrapper, **attrs) -> None:
     """
     tid = threading.get_ident()
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += n
         by_thread = wrapper.__dict__.setdefault("launches_by_thread", {})
-        by_thread[tid] = by_thread.get(tid, 0) + 1
+        by_thread[tid] = by_thread.get(tid, 0) + n
         for name, value in attrs.items():
             setattr(wrapper, name, value)
 

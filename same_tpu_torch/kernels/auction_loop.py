@@ -10,6 +10,13 @@ rounds (the bidding round is K1's plain version, the boundary step with its
 one host read per round feeds :func:`_control_step`). Both return an
 :class:`AuctionResult`.
 
+``auction_loop_batch`` (kernel K5) solves a batch of same-shape windows
+stacked on a leading axis, the JAX package's vmapped ``_auction_run``: one
+cooperative launch for the batch, each window on its own range of blocks,
+bit-equal window by window to ``auction_loop`` on the same inputs. Its plain
+version, ``auction_loop_batch_plain``, loops ``auction_loop_plain`` over the
+windows.
+
 The kernel never writes its inputs: ``prices0``, ``assigned0`` and
 ``owner0`` are copied into the fresh output tensors first, and those are
 what it updates in place.
@@ -319,6 +326,18 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_auction_loop_workspace.restype = ctypes.c_longlong
         lib.same_auction_loop_workspace.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.same_auction_loop_batch_capacity.restype = i
+        lib.same_auction_loop_batch_capacity.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.same_auction_loop_batch.restype = i
+        lib.same_auction_loop_batch.argtypes = [
+            p, p, p, p, p, p, i,  # costs .. slot_cols, Ps
+            p, i, p, p, p, p,  # eps_sched, P, prices0, assigned0, owner0, warm
+            i, i, i, i,  # B, n, C, S
+            p, i, p, p,  # max_rounds, max_polish, obj_patience, obj_tol
+            p, i,  # windows, their number
+            p, p, p, p,  # choice, prices, owner, stats
+            p, ctypes.c_longlong, p, ctypes.POINTER(i),  # workspace, stride, stream, launches
+        ]
         lib.same_auction_loop.restype = i
         lib.same_auction_loop.argtypes = [
             p, p, p, p, p, p, i,  # costs .. slot_cols, Ps
@@ -417,3 +436,175 @@ def auction_loop(
 
 auction_loop.launches = 0
 auction_loop.last_stats = {}
+
+
+class AuctionBatchResult(NamedTuple):
+    """Per-window results of a batched solve; rows of windows that were not
+    solved are not written (their rounds, phase and polish read 0)."""
+
+    choice: torch.Tensor   # [B, n] i32
+    prices: torch.Tensor   # [B, S+1] f32
+    owner: torch.Tensor    # [B, S+1] i32
+    rounds: np.ndarray     # [B] i64
+    phase: np.ndarray      # [B] i64
+    polish: np.ndarray     # [B] i64
+
+
+def _per_window(value, B, dtype):
+    """A scalar or a length-B sequence as a [B] numpy array."""
+    return np.broadcast_to(np.asarray(value, dtype=dtype), (B,)).copy()
+
+
+def auction_loop_batch_plain(
+    costs, slots, valid, nm_cost, prices0, eps_schedules, max_rounds,
+    max_polish=64, assigned0=None, owner0=None, slot_rows=None, slot_cols=None,
+    obj_patience=0, obj_tol=0.0, windows=None,
+) -> AuctionBatchResult:
+    """Plain version of K5: :func:`auction_loop_plain` on each listed window.
+
+    Arguments as :func:`auction_loop_batch`.
+    """
+    B, n, _C = costs.shape
+    S1 = prices0.shape[1]
+    sched = np.asarray(eps_schedules, dtype=np.float32)
+    budget = _per_window(max_rounds, B, np.int64)
+    patience = _per_window(obj_patience, B, np.int64)
+    tol = _per_window(obj_tol, B, np.float32)
+    choice = torch.empty((B, n), dtype=torch.int32, device=costs.device)
+    prices = torch.empty((B, S1), dtype=torch.float32, device=costs.device)
+    owner = torch.empty((B, S1), dtype=torch.int32, device=costs.device)
+    stats = np.zeros((3, B), np.int64)
+    for b in range(B) if windows is None else windows:
+        res = auction_loop_plain(
+            costs[b], slots[b], valid[b], nm_cost[b], prices0[b], sched[b],
+            int(budget[b]), max_polish=max_polish,
+            assigned0=None if assigned0 is None else assigned0[b],
+            owner0=None if owner0 is None else owner0[b],
+            slot_rows=None if slot_rows is None else slot_rows[b],
+            slot_cols=None if slot_cols is None else slot_cols[b],
+            obj_patience=int(patience[b]), obj_tol=tol[b],
+        )
+        choice[b], prices[b], owner[b] = res.choice, res.prices, res.owner
+        stats[:, b] = (res.rounds, res.phase, res.polish)
+    return AuctionBatchResult(choice, prices, owner, *stats)
+
+
+def batch_capacity(n, S, device):
+    """(windows of size (n, S) one K5 launch holds, blocks per window) on the
+    CUDA ``device``."""
+    with torch.cuda.device(device):
+        lib = _lib()
+        err, grid = ctypes.c_int(0), ctypes.c_int(0)
+        per_launch = lib.same_auction_loop_batch_capacity(
+            n, S, ctypes.byref(grid), ctypes.byref(err))
+        _build.check(lib, err.value, "auction_loop_batch (grid query)")
+    return per_launch, grid.value
+
+
+def auction_loop_batch(
+    costs, slots, valid, nm_cost, prices0, eps_schedules, max_rounds,
+    max_polish=64, assigned0=None, owner0=None, slot_rows=None, slot_cols=None,
+    obj_patience=0, obj_tol=0.0, windows=None,
+) -> AuctionBatchResult:
+    """K5: one auction solve per listed window of a [B, ...] stack.
+
+    ``costs``, ``slots``, ``valid`` are [B, n, C]; ``nm_cost`` [B, n];
+    ``prices0`` [B, S+1]; ``slot_rows`` / ``slot_cols`` [B, S, Ps];
+    ``assigned0`` / ``owner0`` [B, n] / [B, S+1] (every window warm) or None
+    (every window cold). ``eps_schedules`` is a host [B, P] array;
+    ``max_rounds``, ``obj_patience`` and ``obj_tol`` are scalars or one value
+    per window. ``windows`` lists the batch indices to solve (None: all).
+    CUDA tensors launch the kernel (several launches of whole windows when
+    the batch's blocks cannot all be co-resident), CPU tensors take
+    :func:`auction_loop_batch_plain`.
+    """
+    kw = dict(max_polish=max_polish, assigned0=assigned0, owner0=owner0,
+              slot_rows=slot_rows, slot_cols=slot_cols,
+              obj_patience=obj_patience, obj_tol=obj_tol, windows=windows)
+    args = (costs, slots, valid, nm_cost, prices0, eps_schedules, max_rounds)
+    if costs.device.type == "cpu":
+        return auction_loop_batch_plain(*args, **kw)
+    if costs.device.type != "cuda":
+        raise ValueError(f"auction_loop_batch: unsupported device {costs.device}")
+    dev = costs.device
+    B, n, C = costs.shape
+    S = prices0.shape[1] - 1
+    sched = np.ascontiguousarray(eps_schedules, dtype=np.float32)
+    if sched.ndim != 2 or sched.shape[0] != B:
+        raise ValueError(f"auction_loop_batch: eps_schedules must be [{B}, P], got {sched.shape}")
+    P = sched.shape[1]
+    Ps = 0 if slot_rows is None else int(slot_rows.shape[2])
+    spec = [
+        ("costs", costs, torch.float32, (B, n, C)),
+        ("slots", slots, torch.int32, (B, n, C)),
+        ("valid", valid, torch.bool, (B, n, C)),
+        ("nm_cost", nm_cost, torch.float32, (B, n)),
+        ("prices0", prices0, torch.float32, (B, S + 1)),
+    ]
+    for name, t, dtype, shape in (
+        ("assigned0", assigned0, torch.int32, (B, n)),
+        ("owner0", owner0, torch.int32, (B, S + 1)),
+        ("slot_rows", slot_rows, torch.int32, (B, S, Ps)),
+        ("slot_cols", slot_cols, torch.int32, (B, S, Ps)),
+    ):
+        if t is not None:
+            spec.append((name, t, dtype, shape))
+    _build.check_tensors("auction_loop_batch", dev, spec)
+    if (slot_rows is None) != (slot_cols is None):
+        raise ValueError("auction_loop_batch: slot_rows and slot_cols go together")
+    if (assigned0 is None) != (owner0 is None):
+        raise ValueError("auction_loop_batch: assigned0 and owner0 go together")
+    listed = np.arange(B) if windows is None else np.asarray(windows, np.int64)
+    if listed.size and (listed.min() < 0 or listed.max() >= B):
+        raise ValueError(f"auction_loop_batch: windows {listed} outside [0, {B})")
+
+    # The per-window scalars, the schedules and the window list go up in one
+    # int32 copy: [max_rounds | obj_patience | obj_tol bits | warm | sched | windows].
+    warm = np.full(B, 0 if assigned0 is None else 1, np.int32)
+    meta = np.concatenate([
+        _per_window(max_rounds, B, np.int32),
+        _per_window(obj_patience, B, np.int32),
+        _per_window(obj_tol, B, np.float32).view(np.int32),
+        warm, sched.reshape(-1).view(np.int32), listed.astype(np.int32),
+    ])
+    meta_d = torch.as_tensor(meta).to(dev)
+    base = meta_d.data_ptr()
+    at = [base + 4 * k * B for k in range(5)]
+    windows_ptr = base + 4 * (4 * B + B * P)
+
+    with torch.cuda.device(dev):
+        lib = _lib()
+        err = ctypes.c_int(0)
+        ws_bytes = lib.same_auction_loop_workspace(n, S, ctypes.byref(err))
+        _build.check(lib, err.value, "auction_loop_batch (grid query)")
+        choice = torch.empty((B, n), dtype=torch.int32, device=dev)
+        prices = torch.empty((B, S + 1), dtype=torch.float32, device=dev)
+        owner = torch.empty((B, S + 1), dtype=torch.int32, device=dev)
+        stats = torch.zeros((B, 10), dtype=torch.int64, device=dev)
+        workspace = torch.empty(B * ws_bytes, dtype=torch.uint8, device=dev)
+        launches = ctypes.c_int(0)
+        rc = lib.same_auction_loop_batch(
+            costs.data_ptr(), slots.data_ptr(), valid.data_ptr(), nm_cost.data_ptr(),
+            _ptr(slot_rows), _ptr(slot_cols), Ps,
+            at[4], P, prices0.data_ptr(), _ptr(assigned0), _ptr(owner0), at[3],
+            B, n, C, S, at[0], int(max_polish), at[1], at[2],
+            windows_ptr, int(listed.size),
+            choice.data_ptr(), prices.data_ptr(), owner.data_ptr(), stats.data_ptr(),
+            workspace.data_ptr(), ws_bytes, torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(launches),
+        )
+        _build.check(lib, rc, "auction_loop_batch")
+    st = stats.cpu().numpy()  # the one host read of the batch
+    _build.count_launch(auction_loop_batch, n=launches.value, last_stats={
+        "launches": launches.value, "windows": int(listed.size),
+        "rounds": st[:, 0].tolist(), "boundary_rounds": st[:, 3].tolist(),
+        "active_bidder_rounds": st[:, 4].tolist(), "grid": int(st[listed, 5].max(initial=0)),
+        "unplaced_at_exit": st[:, 6].tolist(), "resolved_slot_rounds": st[:, 7].tolist(),
+        "released_rows_read": st[:, 8].tolist(),
+    })
+    return AuctionBatchResult(choice, prices, owner, st[:, 0].copy(), st[:, 1].copy(),
+                              st[:, 2].copy())
+
+
+auction_loop_batch.launches = 0
+auction_loop_batch.last_stats = {}

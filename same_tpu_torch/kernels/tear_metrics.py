@@ -5,6 +5,12 @@
 ``same_tpu/solver/tearing.py:72-104`` (``_tear_metrics``), for CPU tensors.
 Arguments follow ``_tear_metrics``; both return ``(checked, flipped, vmove)``
 as [T] bool, [T] bool and [T] int8.
+
+``tear_metrics_batch`` (kernel K6) does the same for every window of a batch
+stacked on a leading axis, the vmapped tear round of
+``same_tpu/solver/tearing_device.py::run_tearing_device_batch``: one launch,
+outputs [B, T]; its plain version loops ``tear_metrics_plain`` over the
+windows.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_tear_metrics.restype = i
         lib.same_tear_metrics.argtypes = [p] * 13 + [i, i, i, i] + [p] * 4
+        lib.same_tear_metrics_batch.restype = i
+        lib.same_tear_metrics_batch.argtypes = [p] * 13 + [i] * 6 + [p] * 4
     return lib
 
 
@@ -104,3 +112,73 @@ def tear_metrics(
 
 
 tear_metrics.launches = 0
+
+
+def tear_metrics_batch_plain(
+    costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask, src,
+    ref_xy, prices, choice,
+):
+    """Plain version of K6: :func:`tear_metrics_plain` on each window."""
+    outs = [tear_metrics_plain(*(a[b] for a in (
+        costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask, src,
+        ref_xy, prices, choice))) for b in range(costs.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def tear_metrics_batch(
+    costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask, src,
+    ref_xy, prices, choice,
+):
+    """K6 on CUDA tensors, its plain version on CPU tensors.
+
+    Every argument of :func:`tear_metrics` with a leading batch axis B:
+    [B, n, C] rows, [B, T, 3] triangles (padded ones with ``tri_mask`` False
+    and ``src`` 0), [B, m, 2] ref coordinates, [B, S+1] prices, [B, n]
+    choices. Returns ``(checked, flipped, vmove)`` as [B, T] tensors.
+    """
+    args = (costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask,
+            src, ref_xy, prices, choice)
+    if costs.device.type == "cpu":
+        return tear_metrics_batch_plain(*args)
+    if costs.device.type != "cuda":
+        raise ValueError(f"tear_metrics_batch: unsupported device {costs.device}")
+    B, n, C = costs.shape
+    T = tris.shape[1]
+    m = ref_xy.shape[1]
+    S1 = prices.shape[1]
+    _build.check_tensors("tear_metrics_batch", costs.device, (
+        ("costs", costs, torch.float32, (B, n, C)),
+        ("extra", extra, torch.float32, (B, n, C)),
+        ("slots", slots, torch.int32, (B, n, C)),
+        ("valid", valid, torch.bool, (B, n, C)),
+        ("nm", nm, torch.float32, (B, n)),
+        ("pair_idx", pair_idx, torch.int32, (B, n, C)),
+        ("cand_ref", cand_ref, torch.int32, (B, n, C)),
+        ("tris", tris, torch.int32, (B, T, 3)),
+        ("tri_mask", tri_mask, torch.bool, (B, T)),
+        ("src", src, torch.int32, (B, T)),
+        ("ref_xy", ref_xy, torch.float32, (B, m, 2)),
+        ("prices", prices, torch.float32, (B, S1)),
+        ("choice", choice, torch.int32, (B, n)),
+    ))
+    checked = torch.empty((B, T), dtype=torch.bool, device=costs.device)
+    flipped = torch.empty((B, T), dtype=torch.bool, device=costs.device)
+    vmove = torch.empty((B, T), dtype=torch.int8, device=costs.device)
+    if B == 0 or T == 0:
+        return checked, flipped, vmove
+    with torch.cuda.device(costs.device):
+        lib = _lib()
+        rc = lib.same_tear_metrics_batch(
+            choice.data_ptr(), cand_ref.data_ptr(), pair_idx.data_ptr(),
+            costs.data_ptr(), extra.data_ptr(), slots.data_ptr(), valid.data_ptr(),
+            nm.data_ptr(), prices.data_ptr(), tris.data_ptr(), tri_mask.data_ptr(),
+            src.data_ptr(), ref_xy.data_ptr(), B, n, C, S1, m, T, checked.data_ptr(),
+            flipped.data_ptr(), vmove.data_ptr(),
+            torch.cuda.current_stream(costs.device).cuda_stream,
+        )
+        _build.check(lib, rc, "tear_metrics_batch")
+    _build.count_launch(tear_metrics_batch)
+    return checked, flipped, vmove
+
+
+tear_metrics_batch.launches = 0

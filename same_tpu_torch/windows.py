@@ -11,12 +11,15 @@ Reproduces the reference behaviors:
   maximum-cardinality bipartite matching so each aligned and ref ID appears
   at most once.
 
-PyTorch port of ``same_tpu/windows.py``: the sequential and the pipelined
-path, resume and the merge. ``sliding_window_matching`` takes ``device`` like
-``run_same`` (``None`` is the first CUDA card, ``"cpu"`` on request) and
-passes it down. The batched multi-device path (``mesh=``) and the multi-host
-mode (``host_shard=True``) are not ported yet and raise
-``NotImplementedError``.
+PyTorch port of ``same_tpu/windows.py``: the sequential, the pipelined and
+the batched (``mesh=``) path, resume and the merge.
+``sliding_window_matching`` takes ``device`` like ``run_same`` (``None`` is
+the first CUDA card, ``"cpu"`` on request) and passes it down. With
+``mesh`` (a sequence of torch devices, e.g. ``parallel.make_mesh()``) every
+window is prepared on the host, the windows' device solves run as one batch
+per shape bucket (``parallel.solve_windows_sharded``), and the windows are
+finalized in grid order. The multi-host mode (``host_shard=True``) is not
+ported yet and raises ``NotImplementedError``.
 
 Windows in flight: in the pipelined path up to ``tpu_pipeline_windows`` host
 threads run ``solve_prepared`` at once. All of them launch on the device's
@@ -190,17 +193,11 @@ def sliding_window_matching(
     ``gurobi_params``. ``device`` is where the windows are solved: the first
     CUDA card by default (raises without one), ``"cpu"`` on request.
 
-    ``mesh`` (the batched solve of many windows across devices, ROADMAP A9)
-    and ``host_shard=True`` (the multi-host mode, ROADMAP A12) are not
-    ported yet: both raise ``NotImplementedError`` rather than run the
-    sequential path quietly.
+    ``mesh`` (a sequence of torch devices) solves the windows as batches of
+    one shape bucket each, sharded over its devices. ``host_shard=True``
+    (the multi-host mode, ROADMAP A12) is not ported yet: it raises
+    ``NotImplementedError`` rather than run another path quietly.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sliding_window_matching(mesh=...) needs the batched window solve "
-            "(parallel/shard.py, run_tearing_device_batch), which is not "
-            "ported yet: ROADMAP A9 / B9"
-        )
     if host_shard:
         raise NotImplementedError(
             "sliding_window_matching(host_shard=True) needs "
@@ -331,7 +328,7 @@ def sliding_window_matching(
         )
 
     pipeline_k = int(solver.get("tpu_pipeline_windows", 2) or 1)
-    if pipeline_k <= 1 or len(tasks) <= 1:
+    if mesh is None and (pipeline_k <= 1 or len(tasks) <= 1):
         for task in tasks:
             window_matches, _var_out = run_same(
                 aligned_df=task["mov_sub"],
@@ -347,7 +344,7 @@ def sliding_window_matching(
                 device=device,
             )
             _crop_and_record(task, window_matches)
-    else:
+    elif mesh is None:
         # Pipelined sequential path: up to ``tpu_pipeline_windows`` windows
         # in flight so one window's device separation overlaps another's
         # host repair (scipy's HiGHS releases the GIL). Host-heavy stages
@@ -395,6 +392,47 @@ def sliding_window_matching(
             futures = [pool.submit(_solve_one, task) for task in tasks]
             for task, fut in zip(tasks, futures):
                 _crop_and_record(task, fut.result())
+    else:
+        # Batched path: host preprocessing per window, then the batched
+        # device solve (full tearing separation) sharded over the mesh, then
+        # per-window finalization in grid order.
+        from .core import (
+            EmptyWindowError,
+            empty_matches_df,
+            finalize_window,
+            prepare_window,
+        )
+        from .parallel import solve_windows_sharded
+
+        prepared, kept_tasks = [], []
+        for task in tasks:
+            try:
+                prepared.append(
+                    prepare_window(
+                        task["ref_sub"],
+                        task["mov_sub"],
+                        commonCT,
+                        aligned_delaunay=moving_delaunay,
+                        aligned_delaunay_vertex_col=moving_delaunay_vertex_col,
+                        optim_params=optim,
+                        solver_params=solver,
+                        ignore_precomputed_triangulation=ignore_precomputed_triangulation,
+                        verbose=verbose,
+                        device=device,
+                    )
+                )
+                kept_tasks.append(task)
+            except EmptyWindowError:
+                # Reference behavior: such windows emit zero matches.
+                _crop_and_record(
+                    task, empty_matches_df(commonCT, optim["cell_id_col"])
+                )
+        results = solve_windows_sharded(prepared, mesh=mesh, verbose=verbose)
+        for task, pw, res in zip(kept_tasks, prepared, results):
+            window_matches, _var_out = finalize_window(
+                pw, res, outprefix=_window_outprefix(task), verbose=verbose
+            )
+            _crop_and_record(task, window_matches)
 
     return (
         pd.concat(all_matches, ignore_index=True) if all_matches else pd.DataFrame()

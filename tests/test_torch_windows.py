@@ -134,7 +134,7 @@ def test_subset_and_unprocessed_windows_match_jax(tissue, grids):
     pd.testing.assert_frame_equal(existing_t, existing_j)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"host_shard": True}])
+@pytest.mark.parametrize("kw", [{"host_shard": True}])
 def test_unported_paths_raise(tissue, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         _grid(same_tpu_torch, *tissue, 1, **kw)
@@ -157,8 +157,8 @@ def test_cell_type_mismatch_raises(tissue):
 
 
 def test_new_modules_import_no_jax(tmp_path):
-    """The window grid, the device kNN and the Sinkhorn start run with jax
-    made unimportable."""
+    """The window grid, the batched window solve, the device kNN and the
+    Sinkhorn start run with jax made unimportable."""
     tests_dir = os.path.dirname(os.path.abspath(__file__))
     code = (
         "import sys\n"
@@ -166,6 +166,7 @@ def test_new_modules_import_no_jax(tmp_path):
         f"sys.path[:0] = [{os.path.dirname(tests_dir)!r}, {tests_dir!r}]\n"
         "import numpy as np\n"
         "import same_tpu_torch.windows, same_tpu_torch.ops.pairwise, same_tpu_torch.ops.sinkhorn\n"
+        "import same_tpu_torch.parallel\n"
         "from same_tpu_torch.models.assignment import build_assignment_problem\n"
         "from torch_parity import knn_points, sinkhorn_problem\n"
         "q, r, radius, k = knn_points('ties')\n"
@@ -175,6 +176,8 @@ def test_new_modules_import_no_jax(tmp_path):
         "prices = same_tpu_torch.ops.sinkhorn.sinkhorn_prices(pb, n_iters=5, device='cpu')\n"
         "assert np.isfinite(prices).all()\n"
         "assert callable(same_tpu_torch.sliding_window_matching)\n"
+        "(match_ref, _p), = same_tpu_torch.parallel.solve_window_batch([pb], mesh=['cpu'])[0]\n"
+        "assert (match_ref >= 0).any()\n"
         "loaded = [k for k, mod in sys.modules.items()\n"
         "          if (k == 'jax' or k.startswith(('jax.', 'jaxlib', 'same_tpu.')))\n"
         "          and mod is not None]\n"
