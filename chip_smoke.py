@@ -13,8 +13,11 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    ``auction_loop_batch``, the same solve for a batch of windows), K1
    ``auction_bid`` (one bidding round on the same device bodies, the test
    entry), K2 ``tear_metrics`` (its source also holds K6
-   ``tear_metrics_batch``), K3 ``radius_knn`` (the device kNN) and K4
-   ``sinkhorn_sparse`` (the Sinkhorn warm start).
+   ``tear_metrics_batch``), K3 ``radius_knn`` (the device kNN), K4
+   ``sinkhorn_sparse`` (the Sinkhorn warm start), ``tear_round`` (K7
+   ``tear_scalars`` and K8 ``register_cuts``, the rest of a tear round),
+   K9 ``bid_compute`` (the Pallas microbenchmark's compute step) and K10
+   ``sinkhorn_dense``.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs:
    - ``auction_loop`` against the plain Python loop on (a) the LUAD window
@@ -44,7 +47,28 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      bit-equal but for CUDA's exp and log, which may be compiled another way
      into PyTorch; whether they came out bit-equal is printed);
    - one small window solved end to end on the card and on the CPU must
-     give identical incumbents in both separation loops.
+     give identical incumbents in both separation loops;
+   - K7 ``tear_scalars`` at the LUAD window's round-0 state (its first
+     auction solve and K2 at no surcharge): bit-equal to its plain version,
+     the counts exact and the three float sums within 1e-6 relative of a
+     float64 sum, the stop decisions of both identical; K8
+     ``register_cuts`` on the same state, twice (the second round finds its
+     cuts in memory), and on three synthetic windows with dp = 0.1
+     surcharges on duplicate (vertex, column) targets, a column block
+     clamped at C - 1, full dedup memories, and the per-round and total caps
+     binding: ``cut_mem``, ``cut_cnt``, ``extra`` and the cuts added
+     bit-equal to the plain version;
+   - K9 ``bid_compute`` at [12288, 8] and [12288, 24] on the
+     microbenchmark's instance: bit-equal to its plain version;
+   - K10 ``sinkhorn_dense`` through ``same_tpu_torch.ops.sinkhorn`` (no
+     ``device``) at [4096, 4096], eps 0.05, 200 iterations: finite, its
+     largest error on f and g against a float64 run of the plain version at
+     most twice the float32 plain version's, the plan's columns summing to
+     their marginals.
+7. The microbenchmark ``python -m same_tpu_torch.microbench`` at its
+   defaults ([12288, 8], 200 iterations), in this process: its four rows,
+   (a) a full bidding round by K1 and by the plain round, (b) the price
+   gather, (c) the compute step in plain PyTorch and (d) by K9.
 3. The slice: the LUAD-scale window of ``bench.py`` (25k cells a side, MS=3
    metacells) through ``same_tpu_torch.run_same`` on the card (no
    ``device`` argument), three times:
@@ -60,8 +84,12 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      for a caller who sets only the budget. Once separation is fast its
      answer is a race between the two repairs (ROADMAP C8), so it is
      printed and held only to a valid answer.
-   In each run ``auction_loop`` must have launched once per auction solve,
-   K2 at least once, and the single-round K1 not at all; the matching must
+   In each run ``auction_loop`` and K7 must have launched once per auction
+   solve (a tear round), K8 once a round that registered cuts (every round
+   but perhaps the last), K2 at least once, and the single-round K1 not at
+   all; the first two runs print the split of a tear round, timed with CUDA
+   events: the auction, K2, K7, K8 and the host's reads between them (the
+   first beside the speculative repair thread, the second alone); the matching must
    be valid and the objective finite and not below the window's lower
    bound. In the first two, matches and flip fraction must sit within 1 %
    and 0.01 of the JAX package's record in BENCH_r05.json, and the
@@ -75,8 +103,9 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    sequentially, with two windows in flight (the library default), and
    sequentially with ``init_method="sinkhorn"`` and ``SAME_TPU_KNN=tpu``, so
    that K3 and K4 run inside the slice. The three must give the same window
-   ids and the same decomposition; in every window ``auction_loop`` must
-   have launched once per auction solve and K2 at least once, K1 never, and
+   ids and the same decomposition; in every window ``auction_loop`` and K7
+   must have launched once per auction solve, K8 once a registering round,
+   and K2 at least once, K1 never, and
    in the third run K3 and K4 once a window; every window's matching must be
    valid and its objective finite and not below its lower bound; the merged
    frame must hold each aligned and each ref id at most once; the pipelined
@@ -87,8 +116,9 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    (f) ``sliding_window_matching(mesh=parallel.make_mesh())`` with phase 4's
    parameters, the counts from 0: K5 launched once a tear round of each
    batch (more only where a batch's blocks cannot all be co-resident), K6
-   once a tear round, no solo ``auction_loop`` or K2 launch but an eps-retry
-   re-solve's; the same window ids as phase 4's sequential run, merged
+   and K7 once a tear round, K8 once a round in which a window registered,
+   no solo ``auction_loop`` or K2 launch but an eps-retry re-solve's; the
+   split of a batched tear round, as in phase 3; the same window ids as phase 4's sequential run, merged
    matches within 1 % + 2 of it and merged-pair agreement at least 0.90
    (tests/test_windows_sharded.py's gate: each solve gets the batch's round
    budget, so the incumbents differ); every window a valid matching at or
@@ -99,7 +129,9 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    copies of the LUAD window than one launch holds, and on two copies of a
    window wider than the batch kernel's co-resident grid (73,728 slots),
    each copy against a solo launch, (d) K6 against one K2
-   launch a window and against its plain version, all bit-equal; (e) each
+   launch a window and against its plain version, K7 and K8 on the same
+   stack against their plain versions and K7 against each window alone
+   (unpadded), all bit-equal; (e) each
    batch of (f) against ``run_tearing_device`` window by window given the
    batch's budget and schedule length: identical incumbents before repair
    and cut registries. Times of K5 (beside the solo launches) and K6, their
@@ -115,8 +147,8 @@ Prints the kernel table as one JSON line, then the nvidia-smi line, then as
 the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
-phase 2, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and phases 4
-and 6.
+phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
+phases 4 and 6.
 """
 
 from __future__ import annotations
@@ -256,10 +288,13 @@ def phase0():
 
 # The kernels' sources (one nvcc each) and their wrappers: K5
 # ``auction_loop_batch`` is in auction_loop.cu, K6 ``tear_metrics_batch`` in
-# tear_metrics.cu.
+# tear_metrics.cu, K7 ``tear_scalars`` and K8 ``register_cuts`` in
+# tear_round.cu.
 SOURCES = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
-           "sinkhorn_sparse")
-KERNELS = SOURCES + ("auction_loop_batch", "tear_metrics_batch")
+           "sinkhorn_sparse", "tear_round", "bid_compute", "sinkhorn_dense")
+KERNELS = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
+           "sinkhorn_sparse", "auction_loop_batch", "tear_metrics_batch",
+           "tear_scalars", "register_cuts", "bid_compute", "sinkhorn_dense")
 
 
 def phase1():
@@ -449,7 +484,7 @@ def phase2_window(pw, device):
         f"{int(out_k[0].sum())} checked, {int(out_k[1].sum())} flipped; bit-equal; "
         f"kernel {t_k:.4f} ms, twin {t_p:.4f} ms (median of 60); "
         f"bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us")
-    return k1, (k2_err, t_k, t_p, b_ms)
+    return k1, (k2_err, t_k, t_p, b_ms), res
 
 
 def phase2_knn(mc_ref, mc_align, device, smi_line):
@@ -856,6 +891,371 @@ def phase2_loop(pw, device, smi_line):
 
 
 # ----------------------------------------------------------------------------
+# Phase 2, continued: the rest of a tear round (K7, K8), K9 and K10
+# ----------------------------------------------------------------------------
+
+def timed_reset(reset, fn, reps=30, warmup=2):
+    """Median CUDA-event time of fn() in ms, each call after reset(), whose
+    work is enqueued before the start event and so not timed."""
+    import torch
+
+    times = []
+    for i in range(warmup + reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def scalars_f64(costs, nm, choice, cand_ref, m, flipped, checked, tw, tri_mask, src):
+    """The six values of one window's stop rule on the host: the sums in
+    float64, the counts exact (numpy arrays of one window)."""
+    n, C = costs.shape
+    col = np.clip(choice, 0, C - 1)
+    match = choice < C
+    rows = np.arange(n)
+    base = np.where(match, costs[rows, col].astype(np.float64), nm.astype(np.float64)).sum()
+    refs = np.clip(cand_ref[rows, col][match], 0, m - 1)
+    over = float(len(refs) - len(np.unique(refs)))
+    tw = tw.astype(np.float64)
+    return np.array([base, over, tw[flipped].sum(), tw[tri_mask & (src != 0)].sum(),
+                     checked.sum(), flipped.sum()], np.float64)
+
+
+def check_scalars(tag, got, want):
+    """K7's row against the host's: counts exact, sums within 1e-6 relative."""
+    got = np.asarray(got, np.float64)
+    for k in (1, 4, 5):
+        require(got[k] == want[k], f"K7 {tag}: value {k} is {got[k]}, exactly {want[k]}")
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in (0, 2, 3))
+    require(rel <= 1e-6, f"K7 {tag}: a float sum off the float64 sum by {rel:.3g} relative")
+    return rel
+
+
+def k7_bytes(choice, C, flipped, tri_mask, src):
+    """Bytes K7 must move for one window, from this run's data (numpy): per
+    row its choice, then the chosen cost and ref of a matched row or the
+    no-match cost of an unmatched one; per triangle its flipped, checked and
+    mask flags, the source sign of a masked one and the weight of one that is
+    flipped or checkable; the window's ref count and its six outputs."""
+    matched = int((choice < C).sum())
+    n = len(choice)
+    weighed = flipped | (tri_mask & (src != 0))
+    return (4 * n + 8 * matched + 4 * (n - matched) + 3 * len(flipped)
+            + 4 * int(tri_mask.sum()) + 4 * int(weighed.sum()) + 4 + 24)
+
+
+def k8_bytes(tris, flipped, cnt_before, cnt_after, choice, C, vmove, L):
+    """Bytes K8 must move for one window, from this run's data (numpy): every
+    triangle's flipped flag; for each flipped triangle its vertices, its
+    count and the filled slots of its memory (a slot at or past the count
+    holds -2 and cannot match); the choice of each distinct vertex of the
+    flipped triangles and the matched pair of those matched; for each cut
+    its move and surcharge, the stored triple and the new count; each
+    distinct (vertex, column) cell surcharged, read and written once; the
+    control words and the cuts added."""
+    from same_tpu_torch.kernels.tear_round import surcharged_cells
+
+    f = np.flatnonzero(flipped)
+    verts = np.unique(tris[f])
+    matched = int((choice[verts] < C).sum())
+    new = np.flatnonzero(cnt_after != cnt_before)
+    cells = np.unique(surcharged_cells(tris, vmove, choice, new, C, L), axis=0)
+    return (len(flipped) + 16 * len(f) + 12 * int(cnt_before[f].sum()) + 4 * len(verts)
+            + 4 * matched + 21 * len(new) + 8 * len(cells) + 16 + 4)
+
+
+def compare_cuts(tag, state_k, state_p, added_k, added_p):
+    """K8's outputs bit-equal to the plain version's."""
+    for name, a, b in zip(("cut_mem", "cut_cnt", "extra"), state_k, state_p):
+        require_equal(f"K8 {tag} {name}", a, b)
+    require_equal(f"K8 {tag} added", added_k, added_p.to(added_k.device))
+
+
+def run_cuts_twice(tag, args, state, register, cuts_added, **kw):
+    """K8 and its plain version from the same state, two rounds each (the
+    second finds its cuts in memory); returns the cuts added a round, the
+    kernel's end state and the largest difference from the plain version."""
+    import torch
+
+    from same_tpu_torch.kernels.tear_round import register_cuts, register_cuts_plain
+
+    sk = [t.clone() for t in state]
+    sp = [t.clone() for t in state]
+    added, err = [], 0.0
+    for rnd in range(2):
+        ak = register_cuts(*args, register, cuts_added, *sk, **kw)
+        ap = register_cuts_plain(*args, register, cuts_added, *sp, **kw)
+        torch.cuda.synchronize()
+        compare_cuts(f"{tag} round {rnd}", sk, sp, ak, ap)
+        err = max(err, max_abs_diff(list(zip(sk, sp)) + [(ak, ap)]))
+        added.append(ak.tolist())
+    return added, sk, err
+
+
+def phase2_tear_round(pw, res, device, smi_line):
+    """K7 and K8 at the LUAD window's round-0 state against their plain
+    versions, and K8 on synthetic windows that exercise its corners."""
+    import torch
+
+    from same_tpu_torch.kernels.tear_metrics import tear_metrics
+    from same_tpu_torch.kernels.tear_round import (
+        register_cuts, register_cuts_plain, synthetic_round_state, tear_scalars,
+        tear_scalars_plain,
+    )
+    from same_tpu_torch.models.assignment import to_device
+    from same_tpu_torch.solver.tearing_device import _cut_surcharge, _knobs, _score_and_stop
+
+    prob = pw.problem
+    pd = to_device(prob, device)
+    n, C = prob.costs.shape
+    T, K, L = len(pw.tris), 6, int(prob.n_slot_copies)
+
+    def up(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    tris, src = up(pw.tris, torch.int32), up(pw.source_signs, torch.int32)
+    ref_xy, tw = up(pw.ref_coords, torch.float32), up(pw.tri_weights, torch.float32)
+    tri_mask = torch.ones(T, dtype=torch.bool, device=device)
+    m = ref_xy.shape[0]
+    # Round 0: the first auction solve, K2 at no surcharge.
+    checked, flipped, vmove = tear_metrics(
+        pd.costs, torch.zeros_like(pd.costs), pd.slots, pd.valid, pd.nm_cost, pd.pair_idx,
+        pd.cand_ref, tris, tri_mask, src, ref_xy, res.prices, res.choice)
+    k7_args = (pd.costs[None], pd.nm_cost[None], res.choice[None], pd.cand_ref[None],
+               ref_xy[None], torch.tensor([m], dtype=torch.int32, device=device),
+               flipped[None], checked[None], tw[None], tri_mask[None], src[None])
+    got = tear_scalars(*k7_args)
+    plain = tear_scalars_plain(*k7_args)
+    torch.cuda.synchronize()
+    require_equal("K7 LUAD round 0", got, plain)
+    host = [t.cpu().numpy() for t in (pd.costs, pd.nm_cost, res.choice, pd.cand_ref)]
+    want = scalars_f64(*host, m, *(t.cpu().numpy() for t in (flipped, checked, tw, tri_mask, src)))
+    rel = check_scalars("LUAD round 0", got[0].cpu().numpy(), want)
+    kn = _knobs(OPTIM["delaunay_penalty"], SOLVER["lazy_allowed_flip_fraction"],
+                OPTIM["penalty_coeff"], False, 6, SOLVER["tpu_tear_plateau_tol"], n,
+                pw.eps_solver, 128, SOLVER["mip_gap"])
+    decide = [_score_and_stop(row, 0, kn, np.float32(np.inf), 0, 0, 0, 1 << 30)
+              for row in (got[0].cpu().numpy(), plain[0].cpu().numpy())]
+    require(decide[0] == decide[1], f"K7: stop decisions {decide[0]} vs plain {decide[1]}")
+    k7_err = float((got.double() - torch.as_tensor(want, device=device)).abs().max())
+    t7 = median_ms(lambda: tear_scalars(*k7_args))
+    t7_p = median_ms(lambda: tear_scalars_plain(*k7_args), reps=10, warmup=1)
+    n7 = k7_bytes(res.choice.cpu().numpy(), C,
+                  *(t.cpu().numpy() for t in (flipped, tri_mask, src)))
+    b7 = bound_ms(n7)
+    log(f"[phase 2] K7 LUAD round 0: [n, C] = [{n}, {C}], m = {m}, T = {T}; bit-equal to "
+        f"the plain version, counts exact, sums within {rel:.3g} of float64 (max abs "
+        f"{k7_err:.4g}), stop decision {decide[0][3]} both; values {got[0].tolist()}; "
+        f"kernel {t7:.4f} ms (median of 60), plain {t7_p:.3f} ms (median of 10); bound "
+        f"{n7 / 1e6:.4f} MB = {b7 * 1e3:.4f} us; {smi_line}")
+
+    surcharge = _cut_surcharge(tw, kn)
+    args = (tris[None], surcharge[None], res.choice[None], pd.pair_idx[None], flipped[None],
+            vmove[None])
+    kw = dict(L=L, K=K, max_cuts_per_round=1000, max_cuts_total=1 << 30)
+    state = (torch.full((1, T, K, 3), -2, dtype=torch.int32, device=device),
+             torch.zeros((1, T), dtype=torch.int32, device=device),
+             torch.zeros((1, n, C), dtype=torch.float32, device=device))
+    one, zero = np.ones(1, bool), np.zeros(1, np.int64)
+    added, _, k8_err = run_cuts_twice("LUAD round 0", args, state, one, zero, **kw)
+    # The second round from the first's end state adds only the triangles
+    # the per-round cap held back.
+    first, second = added[0][0], added[1][0]
+    cap = kw["max_cuts_per_round"]
+    require(0 < first <= cap and (first == cap or second == 0), f"K8 LUAD: cuts added {added}")
+    work = [t.clone() for t in state]
+
+    def reset():
+        for w_, s_ in zip(work, state):
+            w_.copy_(s_)
+
+    t8 = timed_reset(reset, lambda: register_cuts(*args, one, zero, *work, **kw))
+    t8_p = timed_reset(reset, lambda: register_cuts_plain(*args, one, zero, *work, **kw),
+                       reps=5, warmup=1)
+    # After timed_reset, work holds the state one launch left from state.
+    n8 = k8_bytes(np.asarray(pw.tris), flipped.cpu().numpy(), state[1][0].cpu().numpy(),
+                  work[1][0].cpu().numpy(), res.choice.cpu().numpy(), C,
+                  vmove.cpu().numpy(), L)
+    b8 = bound_ms(n8)
+    log(f"[phase 2] K8 LUAD round 0: L = {L}, K = {K}, {int(flipped.sum())} flipped, "
+        f"{added[0][0]} cuts (cap {kw['max_cuts_per_round']} a round), then {added[1][0]} "
+        f"from the first's end state; cut_mem, cut_cnt, "
+        f"extra, added bit-equal to the plain version in both rounds; kernel {t8:.4f} ms "
+        f"(median of 30), plain {t8_p:.3f} ms (median of 5); bound {n8 / 1e6:.4f} MB = "
+        f"{b8 * 1e3:.4f} us; {smi_line}")
+
+    # Synthetic windows: dp = 0.1 surcharges, about ten cuts a vertex, C = 7
+    # with L = 3 (a block clamped at C - 1), full and matching memories; the
+    # caps free, then binding (per round in window 0, in total in window 1).
+    rng = np.random.default_rng(5)
+    keys = ("choice", "pair_idx", "tris", "surcharge", "flipped", "vmove", "cut_mem",
+            "cut_cnt", "extra")
+    ws = [{k: w[k] for k in keys} for w in (synthetic_round_state(rng) for _ in range(3))]
+    for label, reg, done, caps in (
+        ("no cap", [True, True, False], [0, 5, 0], (1000, 1 << 30)),
+        ("both caps", [True, True, True], [0, 18, 3], (4, 20)),
+    ):
+        st = {k: up(np.stack([w[k] for w in ws]), None) for k in ws[0]}
+        s_args = (st["tris"], st["surcharge"], st["choice"], st["pair_idx"], st["flipped"],
+                  st["vmove"])
+        added, after, err = run_cuts_twice(
+            f"synthetic, {label}", s_args, (st["cut_mem"], st["cut_cnt"], st["extra"]),
+            np.asarray(reg), np.asarray(done), L=3, K=2, max_cuts_per_round=caps[0],
+            max_cuts_total=caps[1])
+        hits = cut_targets(ws, after[1].cpu().numpy(), L=3)
+        require(hits > 0, f"K8 synthetic, {label}: no (vertex, column) cell got two surcharges")
+        k8_err = max(k8_err, err)
+        if label == "both caps":
+            require(added[0] == [4, 2, 4], f"K8 synthetic: caps gave {added[0]}, not [4, 2, 4]")
+        log(f"[phase 2] K8 synthetic [3, 40, 7], {label}: cuts added {added[0]} then "
+            f"{added[1]}; {hits} (vertex, column) cells surcharged more than once; "
+            f"bit-equal to the plain version")
+    return {
+        "k7": {"err": k7_err, "ms": t7, "plain_ms": t7_p, "bound_ms": b7},
+        "k8": {"err": k8_err, "ms": t8, "plain_ms": t8_p, "bound_ms": b8},
+    }
+
+
+def cut_targets(ws, cnt_after, L):
+    """(vertex, column) cells of the synthetic windows that got more than one
+    surcharge in the first round."""
+    from same_tpu_torch.kernels.tear_round import surcharged_cells
+
+    hits = 0
+    for b, w in enumerate(ws):
+        new = np.flatnonzero(cnt_after[b] != w["cut_cnt"])
+        cells = surcharged_cells(w["tris"], w["vmove"], w["choice"], new,
+                                 w["extra"].shape[1], L)
+        _, counts = np.unique(cells, axis=0, return_counts=True)
+        hits += int((counts > 1).sum())
+    return hits
+
+
+def phase2_bid_compute(device, smi_line):
+    """K9 at the microbenchmark's instance, C = 8 and 24, against its plain
+    version."""
+    import torch
+
+    from same_tpu_torch.kernels.bid_compute import bid_compute, bid_compute_plain
+    from same_tpu_torch.microbench import instance
+
+    out = {}
+    for C in (8, 24):
+        x = instance(12288, C, device)
+        args = (x["costs"], x["prices"][x["slots"].long()], x["valid"], x["nm"])
+        ck, ik = bid_compute(*args)
+        cp, ip = bid_compute_plain(*args)
+        torch.cuda.synchronize()
+        require_equal(f"K9 C={C} choice", ck, cp)
+        require_equal(f"K9 C={C} incr", ik, ip)
+        err = float((ik - ip).abs().max())
+        t_k = median_ms(lambda: bid_compute(*args))
+        t_p = median_ms(lambda: bid_compute_plain(*args))
+        n = args[0].shape[0]
+        nbytes = tensor_bytes(*args, ck, ik)
+        b_ms = bound_ms(nbytes)
+        log(f"[phase 2] K9 [{n}, {C}]: choice and incr bit-equal to the plain version "
+            f"({int((ck == C).sum())} rows on no-match); kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms (median of 60); bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us; "
+            f"{smi_line}")
+        out[C] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms}
+    return out
+
+
+def phase2_sinkhorn_dense(device, smi_line):
+    """K10 through the public op at [4096, 4096], eps 0.05, 200 iterations,
+    against the plain version in float32 and in float64 on the card."""
+    import torch
+
+    from same_tpu_torch.kernels.sinkhorn_dense import sinkhorn_dense, sinkhorn_dense_plain
+    from same_tpu_torch.ops import sinkhorn as ops_sinkhorn
+
+    n = m = 4096
+    eps, iters = 0.05, 200
+    rng = np.random.default_rng(11)
+    cost_np = rng.uniform(0, 5, (n, m)).astype(np.float32)
+    a_np, b_np = np.full(n, 1.0 / n, np.float32), np.full(m, 1.0 / m, np.float32)
+    # The entry point, no device given: the card, one K10 call.
+    sinkhorn_dense.launches = 0
+    plan, f, g = ops_sinkhorn.sinkhorn_dense(cost_np, a_np, b_np, eps=eps, n_iters=iters)
+    torch.cuda.synchronize()
+    launches = sinkhorn_dense.launches
+    require(launches == 1 and plan.device.type == "cuda",
+            f"K10: the op launched {launches} times on {plan.device}")
+    cost, a, b = (torch.as_tensor(x).to(device) for x in (cost_np, a_np, b_np))
+    p32 = sinkhorn_dense_plain(cost, a, b, eps, iters)
+    p64 = sinkhorn_dense_plain(cost.double(), a.double(), b.double(), eps, iters)
+    torch.cuda.synchronize()
+    for name, t in (("plan", plan), ("f", f), ("g", g)):
+        require(bool(torch.isfinite(t).all()), f"K10: {name} is not finite")
+
+    def err(x, ref):
+        return float((x.double() - ref).abs().max())
+
+    e_k = max(err(f, p64[1]), err(g, p64[2]))
+    e_p = max(err(p32[1], p64[1]), err(p32[2], p64[2]))
+    require(e_k <= 2 * e_p, f"K10: error on f, g against float64 {e_k:.3g} is more than "
+            f"twice the float32 plain version's {e_p:.3g}")
+    plan_err = err(plan, p64[0])
+    # The last update is g's: the columns meet their marginals up to rounding.
+    col = float(((plan.double().sum(0) - b.double()) / b.double()).abs().max())
+    row = float(((plan.double().sum(1) - a.double()) / a.double()).abs().max())
+    require(col <= 1e-4, f"K10: a plan column misses its marginal by {col:.3g} relative")
+    kdiff = max(err(f, p32[1]), err(g, p32[2]))
+    t_k = median_ms(lambda: sinkhorn_dense(cost, a, b, eps, iters), reps=5, warmup=1)
+    t_p = median_ms(lambda: sinkhorn_dense_plain(cost, a, b, eps, iters), reps=3, warmup=1)
+    z_row = (p32[2][None, :] - cost) / torch.tensor(eps, device=device)
+    z_col = (p32[1][:, None] - cost) / torch.tensor(eps, device=device)
+    t_lib = iters * median_ms(lambda: (torch.logsumexp(z_row, 1), torch.logsumexp(z_col, 0)),
+                              reps=20)
+    entries = n * m
+    flops = 12.0 * entries * iters + 4.0 * entries
+    nbytes = tensor_bytes(cost, a, b, plan, f, g)
+    b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
+    log(f"[phase 2] K10 [{n}, {m}], eps {eps}, {iters} iterations, through "
+        f"ops.sinkhorn.sinkhorn_dense on the card ({launches} call): max error on f, g against "
+        f"float64 {e_k:.3g}, float32 plain version's {e_p:.3g} (allowed 2x); kernel vs float32 "
+        f"plain {kdiff:.3g}; plan error {plan_err:.3g}; marginals within {col:.3g} (columns), "
+        f"{row:.3g} (rows) relative; kernel "
+        f"{t_k:.3f} ms (median of 5), plain {t_p:.3f} ms (median of 3), two torch.logsumexp "
+        f"x {iters} {t_lib:.3f} ms; bound {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = {b_ops:.4f} ms "
+        f"(operations; bytes {nbytes / 1e6:.1f} MB = {b_bytes:.4f} ms; the cost and its "
+        f"transpose read each iteration: {iters * 2 * 4 * entries / HBM_BYTES_PER_S * 1e3:.2f} "
+        f"ms); {smi_line}")
+    return {"err": e_k, "plain_err": e_p, "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes", "launches": launches}
+
+
+# ----------------------------------------------------------------------------
+# Phase 7: the microbenchmark
+# ----------------------------------------------------------------------------
+
+def phase7(smi_line):
+    """``same_tpu_torch.microbench`` at its defaults, K1's and K9's counts
+    from 0."""
+    from same_tpu_torch import microbench
+    from same_tpu_torch.kernels import auction_bid, bid_compute
+
+    for fn in (auction_bid, bid_compute):
+        fn.launches = 0
+    log("[phase 7] python -m same_tpu_torch.microbench (defaults):")
+    results = microbench.main([])
+    launches = {"auction_bid": auction_bid.launches, "bid_compute": bid_compute.launches}
+    require(launches["bid_compute"] == 201 and launches["auction_bid"] == 201,
+            f"microbenchmark: launches {launches}, expected 201 each (warm-up + 200)")
+    log(f"[phase 7] launches {json.dumps(launches)}; {smi_line}")
+    return results, launches
+
+
+# ----------------------------------------------------------------------------
 # Phase 3: the slice
 # ----------------------------------------------------------------------------
 
@@ -875,23 +1275,31 @@ def luad_window(cells):
     return mc_ref, mc_align, types
 
 
-def slice_run(mc_ref, mc_align, types, label, solver, check_anchor, obj_lb):
-    """One ``run_same`` of the window with the kernels' counts from 0."""
+def slice_run(mc_ref, mc_align, types, label, solver, check_anchor, obj_lb, smi_line,
+              split=False):
+    """One ``run_same`` of the window with the kernels' counts from 0; with
+    ``split``, the split of its tear rounds is printed and returned."""
+    import contextlib
+
     import torch
 
     from same_tpu_torch import run_same
-    from same_tpu_torch.kernels import auction_bid, auction_loop, tear_metrics
+    from same_tpu_torch.kernels import (
+        auction_bid, auction_loop, register_cuts, tear_metrics, tear_scalars,
+    )
 
     kernels = {"auction_loop": auction_loop, "auction_bid": auction_bid,
-               "tear_metrics": tear_metrics}
+               "tear_metrics": tear_metrics, "tear_scalars": tear_scalars,
+               "register_cuts": register_cuts}
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    matches, var_out = run_same(
-        ref_df=mc_ref.metacell_df, aligned_df=mc_align, commonCT=types,
-        optim_params=OPTIM, solver_params=solver, verbose=False,
-    )
+    with RoundSplit() if split else contextlib.nullcontext() as spy:
+        matches, var_out = run_same(
+            ref_df=mc_ref.metacell_df, aligned_df=mc_align, commonCT=types,
+            optim_params=OPTIM, solver_params=solver, verbose=False,
+        )
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -912,13 +1320,23 @@ def slice_run(mc_ref, mc_align, types, label, solver, check_anchor, obj_lb):
         "repair": {k: v for k, v in tpu["repair_stats"].items()
                    if isinstance(v, (int, float, bool, str))},
     }
+    if split:
+        summary["round_split_ms"] = spy.split()
+        log_split(f"[phase 3] {label}:", summary["round_split_ms"], smi_line)
     log(f"[phase 3] {label}: " + json.dumps(summary))
 
     require(launches["auction_loop"] > 0, f"{label}: auction_loop was never launched by run_same")
     # One persistent launch per auction solve: one solve per tear round.
-    require(launches["auction_loop"] == summary["tear_rounds"],
+    rounds = summary["tear_rounds"]
+    require(launches["auction_loop"] == rounds,
             f"{label}: auction_loop launched {launches['auction_loop']} times for "
-            f"{summary['tear_rounds']} auction solves")
+            f"{rounds} auction solves")
+    # K7 once a tear round; K8 once a round that registers, which is every
+    # round but the one the stop rule ends.
+    require(launches["tear_scalars"] == rounds,
+            f"{label}: K7 launched {launches['tear_scalars']} times for {rounds} tear rounds")
+    require(rounds - 1 <= launches["register_cuts"] <= rounds and launches["register_cuts"] > 0,
+            f"{label}: K8 launched {launches['register_cuts']} times in {rounds} tear rounds")
     require(launches["auction_bid"] == 0,
             f"{label}: the single-round K1 ran on the main path")
     require(launches["tear_metrics"] > 0, f"{label}: K2 tear_metrics was never launched by run_same")
@@ -957,13 +1375,15 @@ def slice_run(mc_ref, mc_align, types, label, solver, check_anchor, obj_lb):
     return summary
 
 
-def phase3(mc_ref, mc_align, types, full, obj_lb):
+def phase3(mc_ref, mc_align, types, full, obj_lb, smi_line):
     """The window in each of SLICE_RUNS (only the first unless ``full``);
-    returns the first, the main path's, summary."""
+    returns the first, the main path's, summary. The first two print the
+    split of their tear rounds: the main path's runs beside the speculative
+    repair thread, the second's alone."""
     runs = SLICE_RUNS if full else SLICE_RUNS[:1]
     return [slice_run(mc_ref, mc_align, types, label, solver,
-                      held if full else None, obj_lb)
-            for label, solver, held in runs][0]
+                      held if full else None, obj_lb, smi_line, split=i < 2)
+            for i, (label, solver, held) in enumerate(runs)][0]
 
 
 # ----------------------------------------------------------------------------
@@ -1010,6 +1430,76 @@ def thread_launches(fn):
     import threading
 
     return fn.__dict__.get("launches_by_thread", {}).get(threading.get_ident(), 0)
+
+
+class RoundSplit:
+    """Where a tear round's time goes, on the card's timeline.
+
+    For the ``with`` block, wraps the kernels that ``solver.tearing_device``
+    calls (the auction, K2/K6, K7, K8) so that each call records a CUDA event
+    before and after it. Between two calls the card waits on the host: after
+    K7 for the read of the six values and the stop rule, after K8 for the
+    read of the cuts added and the next round's set-up. :meth:`split`
+    returns the mean ms a tear round spends in each part.
+    """
+
+    STAGES = {"auction_loop": "auction", "auction_loop_batch": "auction",
+              "tear_metrics": "K2/K6", "tear_metrics_batch": "K2/K6",
+              "tear_scalars": "K7", "register_cuts": "K8"}
+    GAPS = {"K7": "read of the six values + stop rule",
+            "K8": "read of the cuts added + next round's set-up"}
+
+    def __enter__(self):
+        from same_tpu_torch.solver import tearing_device
+
+        self.td = tearing_device
+        self.orig = {name: getattr(tearing_device, name) for name in self.STAGES}
+        self.marks = []
+        for name, fn in self.orig.items():
+            setattr(tearing_device, name, self.wrap(self.STAGES[name], fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.td, name, fn)
+        return False
+
+    def wrap(self, stage, fn):
+        import torch
+
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.marks.append((stage, start, end))
+            return out
+
+        return call
+
+    def split(self):
+        import torch
+
+        torch.cuda.synchronize()
+        rounds = sum(stage == "K7" for stage, _s, _e in self.marks)
+        parts = {}
+        for i, (stage, start, end) in enumerate(self.marks):
+            parts[stage] = parts.get(stage, 0.0) + start.elapsed_time(end)
+            if i + 1 < len(self.marks):
+                gap = self.GAPS.get(stage, "other host work between kernels")
+                parts[gap] = parts.get(gap, 0.0) + end.elapsed_time(self.marks[i + 1][1])
+        total = sum(parts.values())
+        out = {k: v / max(rounds, 1) for k, v in parts.items()}
+        out["round"] = total / max(rounds, 1)
+        out["rounds"] = rounds
+        return out
+
+
+def log_split(tag, split, smi_line):
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in split.items() if k not in ("round", "rounds"))
+    log(f"{tag} a tear round on the card's timeline, mean of {split['rounds']}: "
+        f"{split['round']:.3f} ms = {parts} (ms; CUDA events); {smi_line}")
 
 
 class GridSpy:
@@ -1082,8 +1572,9 @@ class GridSpy:
         rec = self.by_pw[id(pw)]
         self.local.rec = rec
         t0 = time.time()
-        res, launches = self.counted(("auction_loop", "tear_metrics"),
-                                     self.orig["solve_prepared"], pw, *a, **k)
+        res, launches = self.counted(
+            ("auction_loop", "tear_metrics", "tear_scalars", "register_cuts"),
+            self.orig["solve_prepared"], pw, *a, **k)
         self.local.rec = None
         rec["launches"].update(launches)
         used = np.bincount(res.match_ref[res.match_ref >= 0], minlength=rec["n_ref"])
@@ -1166,7 +1657,7 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
     require(launches["auction_bid"] == 0, f"{label}: the single-round K1 ran in the grid")
     for name in ("auction_loop_batch", "tear_metrics_batch"):
         require(launches[name] == 0, f"{label}: the batched {name} ran without a mesh")
-    for name in ("auction_loop", "tear_metrics"):
+    for name in ("auction_loop", "tear_metrics", "tear_scalars", "register_cuts"):
         require(launches[name] == sum(r["launches"][name] for r in recs),
                 f"{label}: {name} launches outside the windows' solves")
     for i, rec in enumerate(recs):
@@ -1178,6 +1669,12 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
                 f"{what}: auction_loop launched {rec['launches']['auction_loop']} times "
                 f"for {solves} auction solves")
         require(rec["launches"]["tear_metrics"] > 0, f"{what}: K2 never ran")
+        require(rec["launches"]["tear_scalars"] == solves,
+                f"{what}: K7 launched {rec['launches']['tear_scalars']} times for {solves} "
+                f"tear rounds")
+        k8 = rec["launches"]["register_cuts"]
+        require(solves - len(rec["solves"]) <= k8 <= solves and k8 > 0,
+                f"{what}: K8 launched {k8} times in {solves} tear rounds")
         want = 1 if device_knn else 0
         require(rec["launches"]["radius_knn"] == want,
                 f"{what}: K3 launched {rec['launches']['radius_knn']} times, expected {want}")
@@ -1290,9 +1787,10 @@ class MeshSpy:
         return False
 
 
-def mesh_grid_run(mc_ref, mc_align, seq):
+def mesh_grid_run(mc_ref, mc_align, seq, smi_line):
     """(f) The tissue through ``sliding_window_matching(mesh=make_mesh())``,
-    the kernels' counts from 0, held against phase 4's sequential run."""
+    the kernels' counts from 0, held against phase 4's sequential run; the
+    split of its batched tear rounds."""
     import torch
 
     from same_tpu_torch import kernels, merge_window_matches_unique_ref
@@ -1307,7 +1805,7 @@ def mesh_grid_run(mc_ref, mc_align, seq):
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    with MeshSpy() as spy:
+    with MeshSpy() as spy, RoundSplit() as timeline:
         matches = sliding_window_matching(
             mc_ref, mc_align, optim_params=GRID_OPTIM,
             solver_params=dict(GRID_SOLVER, tpu_pipeline_windows=1), mesh=mesh,
@@ -1315,6 +1813,8 @@ def mesh_grid_run(mc_ref, mc_align, seq):
         )
     torch.cuda.synchronize()
     wall = time.time() - t0
+    split = timeline.split()
+    log_split("[phase 6] (f) batched:", split, smi_line)
     launches = {name: fn.launches for name, fn in fns.items()}
     merged = merge_window_matches_unique_ref([matches], cell_id_col="metacell_id")
     wids = [int(w) for w in matches["window_id"].unique()]
@@ -1344,6 +1844,18 @@ def mesh_grid_run(mc_ref, mc_align, seq):
             f"mesh grid: K5 launched {launches['auction_loop_batch']} times, expected {k5_want}")
     require(launches["tear_metrics_batch"] == k5_calls,
             f"mesh grid: K6 launched {launches['tear_metrics_batch']} times for {k5_calls} rounds")
+    # K7 once a batched round, K8 once a round in which a window registered
+    # (each batch's rounds but perhaps its last); an eps retry's solo loop
+    # adds its own.
+    k7, k8 = launches["tear_scalars"], launches["register_cuts"]
+    log(f"[phase 6] (f) K7 launches {k7}, K8 launches {k8} in {k5_calls} batched rounds of "
+        f"{len(spy.batches)} batches")
+    if retries:
+        require(k7 >= k5_calls, f"mesh grid: K7 launched {k7} times for {k5_calls} rounds")
+    else:
+        require(k7 == k5_calls, f"mesh grid: K7 launched {k7} times for {k5_calls} rounds")
+        require(k5_calls - len(spy.batches) <= k8 <= k5_calls and k8 > 0,
+                f"mesh grid: K8 launched {k8} times in {k5_calls} batched rounds")
     require(launches["tear_metrics"] == 0 or retries, "mesh grid: the solo K2 ran during separation")
     require(launches["auction_loop"] == 0 or retries,
             "mesh grid: a solo auction_loop ran during separation without an eps retry")
@@ -1401,7 +1913,7 @@ def mesh_grid_run(mc_ref, mc_align, seq):
         f"separation device_time: batch {batch_dev:.3f}s vs sequential sum {seq_dev:.3f}s; "
         f"repair sum {sum(r['repair'] for r in recs):.2f}s vs {seq_rep:.2f}s")
     return {"wall": wall, "launches": launches, "spy": spy, "records": recs,
-            "batch_device_time": batch_dev, "agreement": agree}
+            "batch_device_time": batch_dev, "agreement": agree, "round_split_ms": split}
 
 
 def stacked(pws, device):
@@ -1498,7 +2010,7 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
     from same_tpu_torch.solver.auction import default_eps_schedule, natural_stop_args
     from same_tpu_torch.solver.tearing_device import round_budget, run_tearing_device
 
-    mesh = mesh_grid_run(mc_ref, mc_align, seq)
+    mesh = mesh_grid_run(mc_ref, mc_align, seq, smi_line)
     spy = mesh["spy"]
     out = {"mesh": mesh}
 
@@ -1671,6 +2183,7 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
         f"{int(got[1].sum())} flipped; kernel {t6:.4f} ms (median of 60), plain {t6_p:.3f} ms "
         f"(median of 10); bound {n6 / 1e6:.3f} MB = {b6 * 1e3:.3f} us; {smi_line}")
     out["k6"] = {"err": err6, "ms": t6, "plain_ms": t6_p, "bound_ms": b6}
+    out.update(batch_tear_round(pws, k6_args, got, k.choice, T_list, T_pad, device, smi_line))
 
     # (e) Each batch of the mesh run against solo loops given its budget.
     n_solo = 0
@@ -1706,6 +2219,71 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
         f"budget and schedule length, for all {n_solo} windows: identical incumbents before "
         f"repair and cut registries")
     return out
+
+
+def batch_tear_round(pws, k6_args, k6_out, choice, T_list, T_pad, device, smi_line):
+    """K7 and K8 on phase 6's stack (K6's outputs at (a)'s end state) against
+    their plain versions, and K7 against each window alone, unpadded."""
+    import torch
+
+    from same_tpu_torch.kernels.tear_round import (
+        register_cuts, tear_scalars, tear_scalars_plain,
+    )
+
+    B = len(pws)
+    costs, nm, pair_idx, cand_ref, tris, tri_mask, src = (
+        k6_args[i] for i in (0, 4, 5, 6, 7, 8, 9))
+    checked, flipped, vmove = k6_out
+    tw = np.zeros((B, T_pad), np.float32)
+    for b, p in enumerate(pws):
+        tw[b, :T_list[b]] = p.tri_weights
+    tw = torch.as_tensor(tw).to(device)
+    m_list = [len(p.ref_coords) for p in pws]
+    m_ref = torch.as_tensor(np.asarray(m_list, np.int32)).to(device)
+    ref_xy = k6_args[10]
+    k7_args = (costs, nm, choice, cand_ref, ref_xy, m_ref, flipped, checked, tw, tri_mask, src)
+    got = tear_scalars(*k7_args)
+    plain = tear_scalars_plain(*k7_args)
+    # The running windows as a subset, as _batch_round passes them.
+    sub = np.arange(B - 1, -1, -2)
+    part = tear_scalars(*k7_args, windows=sub)
+    part_p = tear_scalars_plain(*k7_args, windows=sub)
+    torch.cuda.synchronize()
+    require_equal("K7 (g) stack vs plain", got, plain)
+    require_equal(f"K7 (g) windows {sub.tolist()} vs plain", part, part_p)
+    require_equal(f"K7 (g) windows {sub.tolist()} vs the stack", part, got[torch.as_tensor(sub)])
+    for b in range(B):
+        T = T_list[b]
+        alone = tear_scalars(
+            costs[b:b + 1], nm[b:b + 1], choice[b:b + 1], cand_ref[b:b + 1],
+            ref_xy[b:b + 1, :m_list[b]], m_ref[b:b + 1],
+            *(x[b:b + 1, :T].contiguous() for x in (flipped, checked, tw, tri_mask, src)))
+        require_equal(f"K7 (g) window {b} alone vs in the stack", alone[0], got[b])
+    dp = np.float32(GRID_OPTIM["delaunay_penalty"])
+    surcharge = (tw * torch.tensor(dp, device=device)).contiguous()
+    K, L = 6, int(pws[0].problem.n_slot_copies)
+    n, C = costs.shape[1:]
+    state = (torch.full((B, T_pad, K, 3), -2, dtype=torch.int32, device=device),
+             torch.zeros((B, T_pad), dtype=torch.int32, device=device),
+             torch.zeros((B, n, C), dtype=torch.float32, device=device))
+    args = (tris, surcharge, choice, pair_idx, flipped, vmove)
+    reg, done = np.ones(B, bool), np.zeros(B, np.int64)
+    kw = dict(L=L, K=K, max_cuts_per_round=1000, max_cuts_total=1 << 30)
+    added, _, _ = run_cuts_twice("(g) stack", args, state, reg, done, **kw)
+    t7 = median_ms(lambda: tear_scalars(*k7_args))
+    work = [t.clone() for t in state]
+
+    def reset():
+        for w_, s_ in zip(work, state):
+            w_.copy_(s_)
+
+    t8 = timed_reset(reset, lambda: register_cuts(*args, reg, done, *work, **kw))
+    log(f"[phase 6] (g) K7 on {B} windows, T = {T_list} padded to {T_pad}: bit-equal to the "
+        f"plain version, to each window alone and, on windows {sub.tolist()}, to the stack's "
+        f"rows; K8: cuts added {added[0]}, then {added[1]}, "
+        f"bit-equal to the plain version; K7 {t7:.4f} ms, K8 {t8:.4f} ms (medians of 60 and "
+        f"30); {smi_line}")
+    return {"k7_batch": {"ms": t7}, "k8_batch": {"ms": t8}}
 
 
 # ----------------------------------------------------------------------------
@@ -1822,7 +2400,7 @@ def main():
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one auction solve on the window into DIR")
     ap.add_argument("--no-slice", action="store_true",
-                    help="stop after phase 2 (debugging; ends with \"ok\": false)")
+                    help="stop after phases 2 and 7 (debugging; ends with \"ok\": false)")
     ap.add_argument("--grid-only", action="store_true",
                     help="phases 0-1, the K3 and K4 checks of phase 2, and phases 4 "
                          "and 6 (debugging; ends with \"ok\": false)")
@@ -1865,9 +2443,13 @@ def main():
         print(not_ok)
         return 2
     k1_rand = phase2_k1_random(device)
-    k1_win, k2_win = phase2_window(pw, device)
+    k1_win, k2_win, first_solve = phase2_window(pw, device)
+    tear = phase2_tear_round(pw, first_solve, device, smi_line)
+    k9 = phase2_bid_compute(device, smi_line)
+    k10 = phase2_sinkhorn_dense(device, smi_line)
     loop = phase2_loop(pw, device, smi_line)
     phase2_small_window(device)
+    _bench, bench_launches = phase7(smi_line)
     if args.profile:
         profile_solve(pw, device, args.profile)
     if args.no_slice:
@@ -1875,7 +2457,7 @@ def main():
         print(not_ok)
         return 2
     summary = phase3(mc_ref, mc_align, types, full=args.cells == LUAD_CELLS,
-                     obj_lb=pw.obj_lb)
+                     obj_lb=pw.obj_lb, smi_line=smi_line)
     mc_gref, mc_galign = grid_tissue(smi_line)
     grid = phase4(mc_gref, mc_galign)
     batched = phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
@@ -1888,8 +2470,7 @@ def main():
         {
             "name": "auction_loop", "route": "cuda",
             "source": "same_tpu_torch/csrc/auction_loop.cu",
-            "replaces": "examples/bench_pallas.py:122",
-            "also_replaces": "same_tpu/solver/auction.py:66-442",
+            "replaces": "same_tpu/solver/auction.py:66",
             "launches": summary["launches"]["auction_loop"],
             "max_abs_err": max(c["err"] for c in loop.values()),
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
@@ -1900,7 +2481,7 @@ def main():
         {
             "name": "auction_bid", "route": "cuda",
             "source": "same_tpu_torch/csrc/auction_bid.cu",
-            "replaces": "examples/bench_pallas.py:122",
+            "replaces": "same_tpu/solver/auction.py:256",
             "launches": summary["launches"]["auction_bid"],
             "max_abs_err": max(k1_rand[0], k1_win[0]),
             "ms": k1_win[1], "plain_ms": k1_win[2], "bound_ms": k1_win[3],
@@ -1966,7 +2547,53 @@ def main():
             "bound_ms": k6["bound_ms"], "bound_by": "bytes", "library_ms": None,
         },
     ]
-    for kern in kernels[:3]:
+    # K7 and K8 run in both tear loops: their launches are the main path's
+    # (phase 3), with the grid's and the mesh grid's beside them. K9 runs in
+    # the microbenchmark (phase 7), K10 through its op (phase 2).
+    k7, k8 = tear["k7"], tear["k8"]
+    kernels += [
+        {
+            "name": "tear_scalars", "route": "cuda",
+            "source": "same_tpu_torch/csrc/tear_round.cu",
+            "replaces": "same_tpu/solver/tearing_device.py:146",
+            "launches": summary["launches"]["tear_scalars"],
+            "max_abs_err": k7["err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+            "bound_ms": k7["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "launches_in_mesh_grid": mesh_launches["tear_scalars"],
+            "ms_mesh_batch": batched["k7_batch"]["ms"],
+        },
+        {
+            "name": "register_cuts", "route": "cuda",
+            "source": "same_tpu_torch/csrc/tear_round.cu",
+            "replaces": "same_tpu/solver/tearing_device.py:210",
+            "launches": summary["launches"]["register_cuts"],
+            "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+            "bound_ms": k8["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "launches_in_mesh_grid": mesh_launches["register_cuts"],
+            "ms_mesh_batch": batched["k8_batch"]["ms"],
+        },
+        {
+            "name": "bid_compute", "route": "cuda",
+            "source": "same_tpu_torch/csrc/bid_compute.cu",
+            "replaces": "examples/bench_pallas.py:122",
+            "launches": bench_launches["bid_compute"],
+            "max_abs_err": max(c["err"] for c in k9.values()),
+            "ms": k9[8]["ms"], "plain_ms": k9[8]["plain_ms"], "bound_ms": k9[8]["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "ms_c24": k9[24]["ms"], "plain_ms_c24": k9[24]["plain_ms"],
+            "bound_ms_c24": k9[24]["bound_ms"],
+        },
+        {
+            "name": "sinkhorn_dense", "route": "cuda",
+            "source": "same_tpu_torch/csrc/sinkhorn_dense.cu",
+            "replaces": "same_tpu/ops/sinkhorn.py:27",
+            "launches": k10["launches"],
+            "max_abs_err": k10["err"], "plain_max_abs_err": k10["plain_err"],
+            "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"],
+            "bound_by": k10["bound_by"], "library_ms": k10["library_ms"],
+        },
+    ]
+    for kern in kernels[:3] + kernels[-4:-2]:
         kern["launches_in_grid"] = {label: l[kern["name"]] for label, l in grid_launches.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -10,8 +10,8 @@ prices (``prices ~ -g``), shrinking bidding wars on contested regions
 
 Log-domain updates for numerical stability. The sparse variant works
 directly on the padded [n, K] candidate tensors and is kernel K4
-(``kernels/sinkhorn_sparse.py``) on the card; the dense variant has no caller
-in the package and is plain PyTorch.
+(``kernels/sinkhorn_sparse.py``) on the card; the dense variant, a public op
+with no caller in the package, is kernel K10 (``kernels/sinkhorn_dense.py``).
 """
 
 from __future__ import annotations
@@ -19,30 +19,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.sinkhorn_dense import sinkhorn_dense as dense_kernel
 from ..kernels.sinkhorn_sparse import sinkhorn_sparse
 from ..models.assignment import resolve_device
 
 __all__ = ["sinkhorn_dense", "sinkhorn_sparse", "sinkhorn_prices"]
 
 
-def sinkhorn_dense(cost, a, b, eps: float = 0.1, n_iters: int = 200):
+def sinkhorn_dense(cost, a, b, eps: float = 0.1, n_iters: int = 200, device=None):
     """Log-domain Sinkhorn on a dense cost matrix.
 
     Parameters: cost [n, m]; marginals a [n], b [m] (need not be balanced:
     the final plan satisfies the row marginals exactly, column marginals
-    approximately). Returns (plan [n, m], f [n], g [m]).
+    approximately). The inputs are taken as float32, as the JAX op takes
+    them. Returns float32 (plan [n, m], f [n], g [m]) as tensors on
+    ``device``: ``None`` is the first CUDA card (kernel K10; raises without
+    one), ``"cpu"`` runs the kernel's plain version.
     """
-    cost, a, b = (torch.as_tensor(t) for t in (cost, a, b))
-    log_a = torch.log(a)
-    log_b = torch.log(b)
-    f = torch.zeros_like(a)
-    g = torch.zeros_like(b)
-    for _ in range(n_iters):
-        # f-update: row logsumexp of (g - cost)/eps
-        f = eps * log_a - eps * torch.logsumexp((g[None, :] - cost) / eps, dim=1)
-        g = eps * log_b - eps * torch.logsumexp((f[:, None] - cost) / eps, dim=0)
-    plan = torch.exp((f[:, None] + g[None, :] - cost) / eps)
-    return plan, f, g
+    device = resolve_device(device)
+    cost, a, b = (torch.as_tensor(t).to(device=device, dtype=torch.float32).contiguous()
+                  for t in (cost, a, b))
+    return dense_kernel(cost, a, b, eps, n_iters)
 
 
 def sinkhorn_prices(problem, eps: float = 1.0, n_iters: int = 100, device=None):

@@ -2,12 +2,13 @@
 
 Port of ``same_tpu/solver/tearing_device.py``. Each tear round re-solves the
 auction (one ``auction_loop`` launch), runs the flip test and the
-regret-directed choice of the vertex to move (kernel K2), scores the
-incumbent, registers cuts in a per-triangle dedup memory and surcharges the
-cheapest-to-move pair. All
-tensors stay on the device between rounds; the host reads a handful of
-scalars per round and takes the stop decisions on them with f32 semantics,
-and pulls every incumbent in one transfer at the end.
+regret-directed choice of the vertex to move (kernel K2), takes the six
+values of the stop rule (kernel K7 ``tear_scalars``), and registers cuts in
+a per-triangle dedup memory with the surcharge on the cheapest-to-move pair
+(kernel K8 ``register_cuts``). All tensors stay on the device between
+rounds; the host reads the six values and the cuts added once each a round,
+takes the stop decisions on them with f32 semantics, and pulls every
+incumbent in one transfer at the end.
 
 Semantics match the JAX loop, including its one bounded deviation from the
 host loop: per-triangle cut dedup memory holds at most ``K`` distinct
@@ -16,11 +17,11 @@ round and the cold/warm schedules are kept verbatim.
 
 ``run_tearing_device_batch`` runs the same loop for a batch of same-bucket
 windows stacked on a leading axis (the JAX package's vmapped loop): each
-round is one K5 ``auction_loop_batch`` launch for the windows still running
-and one K6 ``tear_metrics_batch`` launch, then the score, cut registration
-and surcharge over the stacked tensors. A window that has stopped is frozen.
-Given the batch's round budget and schedule length, every window's rounds
-are bit-equal to the solo loop's.
+round is one K5 ``auction_loop_batch`` launch for the windows still running,
+one K6 ``tear_metrics_batch`` launch, one K7 and one K8 launch over the
+stacked tensors. A window that has stopped is frozen. Given the batch's
+round budget and schedule length, every window's rounds are bit-equal to
+the solo loop's.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from ..kernels.auction_loop import auction_loop, auction_loop_batch
 from ..kernels.tear_metrics import tear_metrics, tear_metrics_batch
+from ..kernels.tear_round import register_cuts, tear_scalars
 from ..models.assignment import (
     AssignmentProblem,
     default_device,
@@ -128,6 +130,8 @@ class LoopInputs(NamedTuple):
     src: torch.Tensor           # [T] i32
     ref_xy: torch.Tensor        # [m, 2] f32
     tri_weights: torch.Tensor   # [T] f32
+    surcharge: torch.Tensor     # [T] f32 a cut on each triangle adds
+    m_ref: torch.Tensor         # [1] i32, m
     full_schedule: np.ndarray
     warm_schedule: np.ndarray
     knobs: Knobs
@@ -167,34 +171,12 @@ def _resolve_args(r, max_rounds, warm_max_rounds):
     return cold, r == 0, budget
 
 
-def _round_scalars(costs, nm, is_match, col, match_ref, m_ref, flipped, checked,
-                   tri_weights, tri_mask, src):
-    """The six f32 sums a tear round's stop rule reads, as one [6] tensor:
-    base cost, congestion overflow, flipped weight, checkable weight, checked
-    and flipped counts, from one window's [n] / [T] tensors. The batched loop
-    calls it window by window, so that each sum is taken in the solo loop's
-    order (ROADMAP C6: another order can flip a stop decision)."""
-    dev = costs.device
-    rows = torch.arange(costs.shape[0], device=dev)
-    base_sum = torch.where(is_match, costs[rows, col], nm).sum()
-    u_ref = torch.zeros(m_ref, dtype=torch.float32, device=dev).index_add(
-        0, match_ref.clamp(0, m_ref - 1).long(), is_match.to(torch.float32)
-    )
-    over = torch.clamp_min(u_ref - 1.0, 0.0).sum()
-    flip_w = torch.where(flipped, tri_weights, 0.0).sum()
-    checkable_w = torch.where(tri_mask & (src != 0), tri_weights, 0.0).sum()
-    return torch.stack([
-        base_sum, over, flip_w, checkable_w,
-        checked.sum().to(torch.float32), flipped.sum().to(torch.float32),
-    ])
-
-
 def _score_and_stop(scal, r, kn: Knobs, best_score, since_improve, best_r,
                     cuts_added, max_cuts_total):
     """Incumbent score, plateau bookkeeping and stop test of one window's
     round (same_tpu/solver/tearing_device.py:138-207) on the host scalars of
-    :func:`_round_scalars`, with f32 semantics. Returns (best_score,
-    since_improve, best_r, stop_now)."""
+    :func:`~same_tpu_torch.kernels.tear_round.tear_scalars`, with f32
+    semantics. Returns (best_score, since_improve, best_r, stop_now)."""
     base_sum, over, flip_w, checkable_w = (np.float32(v) for v in scal[:4])
     n_checked, n_flipped = int(scal[4]), int(scal[5])
     dp = kn.delaunay_penalty
@@ -240,50 +222,6 @@ def _cut_surcharge(tri_weights, kn: Knobs):
     return kn.delaunay_penalty * tri_weights
 
 
-def _register_cuts(tris, surcharge, match_pair, choice, flipped, vmove, register,
-                   cuts_added, cut_mem, cut_cnt, extra, *, L, K,
-                   max_cuts_per_round, max_cuts_total) -> np.ndarray:
-    """Cut registration and the regret-directed surcharge of one tear round
-    (same_tpu/solver/tearing_device.py:209-254), over [b, ...] stacks: the
-    solo loop passes [1, ...] views, the batched loop its shard.
-
-    A flipped triangle whose three vertices are matched becomes a cut unless
-    its pair triple is already in its dedup memory (``cut_mem`` [b, T, K, 3],
-    ``cut_cnt`` [b, T]) or the memory is full; the per-round and global caps
-    are honoured in triangle-index order. Only windows with ``register`` set
-    ([b] numpy bool) register. Each cut surcharges the cheapest-to-move pair
-    (``vmove``) over the pair's L-column block of ``extra`` [b, n, C].
-    ``cut_mem``, ``cut_cnt`` and ``extra`` are written in place. Returns the
-    cuts added per window ([b] numpy).
-    """
-    b, T, _ = tris.shape
-    n, C = extra.shape[1:]
-    dev = tris.device
-    tri_pairs = match_pair.gather(1, tris.reshape(b, -1).long()).view(b, T, 3)
-    all_matched = (tri_pairs >= 0).all(dim=2)
-    is_dup = (cut_mem == tri_pairs[:, :, None, :]).all(dim=3).any(dim=2)
-    new_cut = flipped & all_matched & ~is_dup & (cut_cnt < K)
-    new_cut &= torch.as_tensor(register).to(dev)[:, None]
-    rank = torch.cumsum(new_cut.to(torch.int64), 1) - 1
-    done = torch.as_tensor(cuts_added).to(dev)[:, None]
-    new_cut &= (rank < max_cuts_per_round) & (done + rank < max_cuts_total)
-    bi, ti = new_cut.nonzero(as_tuple=True)
-    if not bi.numel():
-        return np.zeros(b, np.int64)
-    cut_mem[bi, ti, cut_cnt[bi, ti].long()] = tri_pairs[bi, ti]
-    cut_cnt += new_cut.to(torch.int32)
-    # Duplicate (vertex, column) targets accumulate in an unspecified order on
-    # a card; the surcharges are dp * tri_weight (dp * integer cell counts),
-    # exact in f32.
-    v_t = tris.gather(2, vmove.long()[..., None])[..., 0][bi, ti].long()
-    col_t = choice[bi, v_t.clamp(0, n - 1)].clamp(0, C - 1).long()
-    blk_t = (col_t // L) * L
-    upd = surcharge[bi, ti]
-    for s in range(L):
-        extra.index_put_((bi, v_t, (blk_t + s).clamp(0, C - 1)), upd, accumulate=True)
-    return new_cut.sum(dim=1).cpu().numpy()
-
-
 def _tearing_loop(
     inp: LoopInputs, state: TearState, r_end: int, *, L: int, K: int,
     max_tear_rounds: int, max_rounds: int, max_cuts_per_round: int,
@@ -294,7 +232,6 @@ def _tearing_loop(
     if state.stop or not state.r < min(r_end, R):
         return state
     costs = inp.costs
-    C = costs.shape[1]
     r = state.r
     extra = state.extra
     kn = inp.knobs
@@ -322,10 +259,6 @@ def _tearing_loop(
         obj_band=kn.obj_band,
     )
     choice = res.choice
-    col = choice.clamp(0, C - 1).long()
-    is_match = choice < C
-    match_pair = torch.where(is_match, inp.pair_idx.gather(1, col[:, None])[:, 0], -1)
-    match_ref = torch.where(is_match, inp.cand_ref.gather(1, col[:, None])[:, 0], -1)
 
     # Flip test + regret-directed vertex choice at this round's surcharges
     # and the re-solve's prices: kernel K2.
@@ -339,12 +272,13 @@ def _tearing_loop(
     state.all_checked[r] = checked
     state.all_rounds[r] = res.rounds
 
-    # Incumbent score (flips-pay search objective): the f32 sums on the
-    # device, then one read of the six scalars.
-    scal = _round_scalars(
-        costs, inp.nm, is_match, col, match_ref, inp.ref_xy.shape[0], flipped,
-        checked, inp.tri_weights, inp.tri_mask, inp.src,
-    ).cpu().numpy()
+    # Incumbent score (flips-pay search objective): the six values on the
+    # device (K7), then one read of them. The [1, ...] views share storage.
+    scal = tear_scalars(
+        costs[None], inp.nm[None], choice[None], inp.cand_ref[None], inp.ref_xy[None],
+        inp.m_ref, flipped[None], checked[None], inp.tri_weights[None],
+        inp.tri_mask[None], inp.src[None],
+    )[0].cpu().numpy()
     best_score, since_improve, best_r, stop_now = _score_and_stop(
         scal, r, kn, state.best_score, state.since_improve, state.best_r,
         state.cuts_added, max_cuts_total,
@@ -352,13 +286,12 @@ def _tearing_loop(
 
     added = 0
     if not stop_now:
-        # The [1, ...] views share storage: the registry and the surcharges
-        # are written in place.
-        added = int(_register_cuts(
-            inp.tris[None], _cut_surcharge(inp.tri_weights, kn)[None],
-            match_pair[None], choice[None], flipped[None], vmove[None],
-            np.ones(1, bool), np.array([state.cuts_added]), state.cut_mem[None],
-            state.cut_cnt[None], extra[None], L=L, K=K,
+        # Cut registration and surcharge (K8) write the registry and
+        # ``extra`` in place; one read of the cuts added.
+        added = int(register_cuts(
+            inp.tris[None], inp.surcharge[None], choice[None], inp.pair_idx[None],
+            flipped[None], vmove[None], np.ones(1, bool), np.array([state.cuts_added]),
+            state.cut_mem[None], state.cut_cnt[None], extra[None], L=L, K=K,
             max_cuts_per_round=max_cuts_per_round, max_cuts_total=max_cuts_total,
         )[0])
 
@@ -471,6 +404,10 @@ def run_tearing_device(
     )
 
     pd = to_device(problem, device)
+    knobs = _knobs(delaunay_penalty, allowed_flip_fraction, penalty_coeff, hard,
+                   plateau_patience, plateau_tol, n_pad, eps_final, obj_patience, mip_gap)
+    tw_d = torch.as_tensor(np.ascontiguousarray(tri_weights, np.float32)).to(device)
+    ref_d = torch.as_tensor(np.ascontiguousarray(ref_coords, np.float32)).to(device)
     inp = LoopInputs(
         costs=pd.costs, slots=pd.slots, valid=pd.valid, nm=pd.nm_cost,
         pair_idx=pd.pair_idx, cand_ref=pd.cand_ref, slot_rows=pd.slot_rows,
@@ -478,13 +415,13 @@ def run_tearing_device(
         tris=torch.as_tensor(np.ascontiguousarray(tris, np.int32)).to(device),
         tri_mask=torch.ones(T, dtype=torch.bool, device=device),
         src=torch.as_tensor(np.ascontiguousarray(source_signs, np.int32)).to(device),
-        ref_xy=torch.as_tensor(np.ascontiguousarray(ref_coords, np.float32)).to(device),
-        tri_weights=torch.as_tensor(np.ascontiguousarray(tri_weights, np.float32)).to(device),
+        ref_xy=ref_d,
+        tri_weights=tw_d,
+        surcharge=_cut_surcharge(tw_d, knobs),
+        m_ref=torch.tensor([ref_d.shape[0]], dtype=torch.int32, device=device),
         full_schedule=full_sched,
         warm_schedule=warm_sched,
-        knobs=_knobs(delaunay_penalty, allowed_flip_fraction, penalty_coeff, hard,
-                     plateau_patience, plateau_tol, n_pad, eps_final, obj_patience,
-                     mip_gap),
+        knobs=knobs,
     )
     max_rounds = round_budget(n_pad, C, 1, max_rounds)
     kwargs = dict(
@@ -577,7 +514,7 @@ class _Shard:
     each window's rule runs with the solo loop's f32 semantics.
     """
 
-    def __init__(self, device, arrays, knobs, T, m, full_sched, warm_sched,
+    def __init__(self, device, arrays, knobs, m, full_sched, warm_sched,
                  prices, R, K):
         def up(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
@@ -600,7 +537,8 @@ class _Shard:
         self.src = up(src, torch.int32)
         self.ref_xy = up(ref_xy, torch.float32)
         self.tw = up(tw, torch.float32)
-        self.knobs, self.T, self.m = knobs, T, m
+        self.knobs = knobs
+        self.m_ref = up(np.asarray(m), torch.int32)
         self.full_sched, self.warm_sched = full_sched, warm_sched
         self.surcharge = torch.stack(
             [_cut_surcharge(self.tw[i], k) for i, k in enumerate(knobs)])
@@ -629,10 +567,11 @@ def _batch_round(sh: _Shard, r_end: int, *, L: int, K: int, max_tear_rounds: int
     """One guarded tear round of every running window of the shard.
 
     The rule of :func:`_tearing_loop` (carried state), over the stacked
-    tensors: one K5 launch for the running windows, one K6 launch, the six
-    sums window by window (:func:`_round_scalars`) and one host read of them,
-    the stop rule per window on the host, then cut registration and surcharge
-    over the stack. A window that has stopped keeps its state.
+    tensors: one K5 launch for the running windows, one K6 launch, one K7
+    launch for the six values of the running windows and one host read of
+    them, the stop rule per window on the host, then one K8 launch for the
+    cut registration and surcharge of the windows that register and one read
+    of the cuts added. A window that has stopped keeps its state.
     """
     act = ~sh.stop & (sh.r < min(r_end, max_tear_rounds))
     if not act.any():
@@ -643,7 +582,7 @@ def _batch_round(sh: _Shard, r_end: int, *, L: int, K: int, max_tear_rounds: int
     if not (sh.r[ai] == r).all():
         raise AssertionError(f"batched tear loop out of step: rounds {sh.r[ai]}")
     dev = sh.device
-    B, _n, C = sh.costs.shape
+    B = sh.costs.shape[0]
     cold, first, budget = _resolve_args(r, max_rounds, warm_max_rounds)
     res = auction_loop_batch(
         sh.costs + sh.extra, sh.slots, sh.valid, sh.nm, sh.prices,
@@ -659,10 +598,6 @@ def _batch_round(sh: _Shard, r_end: int, *, L: int, K: int, max_tear_rounds: int
     choice = torch.where(act_d[:, None], res.choice, sh.assigned_c)
     prices = torch.where(act_d[:, None], res.prices, sh.prices)
     owner = torch.where(act_d[:, None], res.owner, sh.owner_c)
-    col = choice.clamp(0, C - 1).long()
-    is_match = choice < C
-    match_pair = torch.where(is_match, sh.pair_idx.gather(2, col[..., None])[..., 0], -1)
-    match_ref = torch.where(is_match, sh.cand_ref.gather(2, col[..., None])[..., 0], -1)
 
     checked, flipped, vmove = tear_metrics_batch(
         sh.costs, sh.extra, sh.slots, sh.valid, sh.nm, sh.pair_idx, sh.cand_ref,
@@ -674,29 +609,28 @@ def _batch_round(sh: _Shard, r_end: int, *, L: int, K: int, max_tear_rounds: int
     sh.all_checked[ai_d, r] = checked[ai_d]
     sh.all_rounds[ai, r] = res.rounds[ai]
 
-    scal = torch.stack([
-        _round_scalars(
-            sh.costs[b], sh.nm[b], is_match[b], col[b], match_ref[b], sh.m[b],
-            flipped[b, :sh.T[b]], checked[b, :sh.T[b]], sh.tw[b, :sh.T[b]],
-            sh.tri_mask[b, :sh.T[b]], sh.src[b, :sh.T[b]],
-        )
-        for b in ai
-    ]).cpu().numpy()
+    # K7 sums each running window in one fixed order, the solo loop's (the
+    # padded triangles add zeros), so a window's stop decisions are the solo
+    # loop's. Row j of scal is window ai[j].
+    scal = tear_scalars(
+        sh.costs, sh.nm, choice, sh.cand_ref, sh.ref_xy, sh.m_ref, flipped,
+        checked, sh.tw, sh.tri_mask, sh.src, windows=ai,
+    ).cpu().numpy()
     register = np.zeros(B, bool)
-    for row, b in enumerate(ai):
+    for j, b in enumerate(ai):
         sh.best_score[b], sh.since_improve[b], sh.best_r[b], stop_now = _score_and_stop(
-            scal[row], r, sh.knobs[b], sh.best_score[b], int(sh.since_improve[b]),
+            scal[j], r, sh.knobs[b], sh.best_score[b], int(sh.since_improve[b]),
             int(sh.best_r[b]), int(sh.cuts_added[b]), max_cuts_total,
         )
         register[b] = not stop_now
 
     added = np.zeros(B, np.int64)
     if register.any():
-        added = _register_cuts(
-            sh.tris, sh.surcharge, match_pair, choice, flipped, vmove, register,
+        added = register_cuts(
+            sh.tris, sh.surcharge, choice, sh.pair_idx, flipped, vmove, register,
             sh.cuts_added, sh.cut_mem, sh.cut_cnt, sh.extra, L=L, K=K,
             max_cuts_per_round=max_cuts_per_round, max_cuts_total=max_cuts_total,
-        )
+        ).cpu().numpy().astype(np.int64)
 
     sh.prices, sh.assigned_c, sh.owner_c = prices, choice, owner
     sh.r[ai] += 1
@@ -856,7 +790,7 @@ def run_tearing_device_batch(
         idx = keep[d * n_local:(d + 1) * n_local]
         shards.append(_Shard(
             devices[d], [a[idx] for a in arrays], [knobs[i] for i in idx],
-            [T_list[i] for i in idx], [len(ref_coords_list[i]) for i in idx],
+            [len(ref_coords_list[i]) for i in idx],
             full_b[idx], warm_b[idx], prices_b[idx], max_tear_rounds, K,
         ))
 

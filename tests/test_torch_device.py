@@ -89,3 +89,21 @@ def test_entry_point_needs_card_by_default(no_card, entry):
 @pytest.mark.parametrize("entry", list(ENTRY_POINTS))
 def test_entry_point_runs_on_cpu_when_asked(no_card, entry):
     assert ENTRY_POINTS[entry](device="cpu") is not None
+
+
+def test_sinkhorn_dense_needs_card_unless_asked(no_card):
+    from same_tpu_torch.ops.sinkhorn import sinkhorn_dense
+
+    cost = np.random.default_rng(0).uniform(0, 5, (6, 5)).astype(np.float32)
+    a, b = np.full(6, 1 / 6, np.float32), np.full(5, 1 / 5, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        sinkhorn_dense(cost, a, b, eps=0.5, n_iters=3)
+    plan, f, g = sinkhorn_dense(cost, a, b, eps=0.5, n_iters=3, device="cpu")
+    assert plan.device.type == f.device.type == g.device.type == "cpu"
+    # numpy's default float64: the same rule, computed in float32 as JAX does.
+    c64, a64, b64 = (x.astype(np.float64) for x in (cost, a, b))
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        sinkhorn_dense(c64, a64, b64, eps=0.5, n_iters=3)
+    out64 = sinkhorn_dense(c64, a64, b64, eps=0.5, n_iters=3, device="cpu")
+    for x, y in zip(out64, (plan, f, g)):
+        assert x.dtype == torch.float32 and torch.equal(x, y)

@@ -84,7 +84,7 @@ def test_sinkhorn_dense_matches_jax():
     a = np.full(n, 1.0 / n, np.float32)
     b = np.full(m, 1.0 / m, np.float32)
     out_j = sj.sinkhorn_dense(cost, a, b, eps=0.05, n_iters=500)
-    out_t = st.sinkhorn_dense(cost, a, b, eps=0.05, n_iters=500)
+    out_t = st.sinkhorn_dense(cost, a, b, eps=0.05, n_iters=500, device="cpu")
     for got, want in zip(out_t, out_j):
         np.testing.assert_allclose(as_np(got), np.asarray(want), rtol=1e-4, atol=1e-5)
     plan = as_np(out_t[0])
