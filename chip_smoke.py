@@ -9,15 +9,16 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    limit.
 1. Build the kernels from ``same_tpu_torch/csrc`` with nvcc for sm_90a, one
    nvcc per source, all started together: ``auction_loop`` (one persistent
-   launch per auction solve, the main path; its source also holds K5
-   ``auction_loop_batch``, the same solve for a batch of windows), K1
+   launch of one thread-block cluster per auction solve, the main path; its
+   source also holds K5 ``auction_loop_batch``, one cluster a window of a
+   batch in one launch), K1
    ``auction_bid`` (one bidding round on the same device bodies, the test
    entry), K2 ``tear_metrics`` (its source also holds K6
    ``tear_metrics_batch``), K3 ``radius_knn`` (the device kNN), K4
    ``sinkhorn_sparse`` (the Sinkhorn warm start), ``tear_round`` (K7
    ``tear_scalars`` and K8 ``register_cuts``, the rest of a tear round),
-   K9 ``bid_compute`` (the Pallas microbenchmark's compute step) and K10
-   ``sinkhorn_dense``.
+   K9 ``bid_compute`` (the Pallas microbenchmark's compute step), K10
+   ``sinkhorn_dense``, and the barrier probe of phase 7.
 2. Hold each kernel against its plain PyTorch version on the card, on the
    same inputs:
    - ``auction_loop`` against the plain Python loop on (a) the LUAD window
@@ -42,12 +43,17 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      expansion |q|^2 + |r|^2 - 2 q.r allows at these coordinates (4 ulp of
      |q|^2 + |r|^2 on every squared distance, twice that between the two
      lists position by position); the rows whose lists differ are counted;
+     and at k = 65, radius 800 (two passes of the kernel, ROADMAP C12)
+     bit-equal to its plain version;
    - K4 on the LUAD problem ([12288, 24], 100 iterations): ``g`` within 1e-4
      of its largest magnitude and the plan within 1e-5 (the design is
      bit-equal but for CUDA's exp and log, which may be compiled another way
      into PyTorch; whether they came out bit-equal is printed);
    - one small window solved end to end on the card and on the CPU must
-     give identical incumbents in both separation loops;
+     give identical incumbents in both separation loops; and its host loop
+     at dp = 0.1 with unequal triangle weights, where the order of the
+     surcharge adds shows in the bits (ROADMAP C11), must hand the auction
+     the same ``extra`` on the card as on the CPU, bit for bit;
    - K7 ``tear_scalars`` at the LUAD window's round-0 state (its first
      auction solve and K2 at no surcharge): bit-equal to its plain version,
      the counts exact and the three float sums within 1e-6 relative of a
@@ -66,11 +72,14 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      most twice the float32 plain version's, the plan's columns summing to
      their marginals.
 7. The microbenchmark ``python -m same_tpu_torch.microbench`` at its
-   defaults ([12288, 8], 200 iterations), in this process: its four rows,
+   defaults ([12288, 8], 200 iterations), in this process: its five rows,
    (a) a full bidding round by K1 and by the plain round, (b) the price
-   gather, (c) the compute step in plain PyTorch and (d) by K9.
+   gather, (c) the compute step in plain PyTorch, (d) by K9 and (e) the
+   barrier probe: us per barrier of the software grid barrier at 113 and
+   33 blocks and of the cluster barrier at three shapes.
 3. The slice: the LUAD-scale window of ``bench.py`` (25k cells a side, MS=3
-   metacells) through ``same_tpu_torch.run_same`` on the card (no
+   metacells; ``make_instance`` as copied into ``same_tpu_torch.instances``)
+   through ``same_tpu_torch.run_same`` on the card (no
    ``device`` argument), three times:
    - the main path, with bench.py's parameters (default repair budgets, as
      in the JAX record);
@@ -114,8 +123,8 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    the first run's for the third, whose candidate sets differ).
 6. The batched window solve, on phase 4's tissue:
    (f) ``sliding_window_matching(mesh=parallel.make_mesh())`` with phase 4's
-   parameters, the counts from 0: K5 launched once a tear round of each
-   batch (more only where a batch's blocks cannot all be co-resident), K6
+   parameters, the counts from 0: K5 launched exactly once a tear round of
+   each batch (one cluster a running window), K6
    and K7 once a tear round, K8 once a round in which a window registered,
    no solo ``auction_loop`` or K2 launch but an eps-retry re-solve's; the
    split of a batched tear round, as in phase 3; the same window ids as phase 4's sequential run, merged
@@ -125,10 +134,10 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    above its lower bound. Then on the windows of its largest batch:
    (a) K5 cold on the full schedule at the batch's budget against one solo
    ``auction_loop`` launch a window and against its plain version, (b) K5
-   against its plain version on three 144-point windows, (c) K5 on more
-   copies of the LUAD window than one launch holds, and on two copies of a
-   window wider than the batch kernel's co-resident grid (73,728 slots),
-   each copy against a solo launch, (d) K6 against one K2
+   against its plain version on three 144-point windows, (c) K5 in one
+   launch on more copies of the LUAD window than the card holds clusters
+   at once, and on two copies of a window of 73,728 slots, five a thread
+   of its one cluster, each copy against a solo launch, (d) K6 against one K2
    launch a window and against its plain version, K7 and K8 on the same
    stack against their plain versions and K7 against each window alone
    (unpadded), all bit-equal; (e) each
@@ -208,6 +217,10 @@ GRID_RUNS = (
     ("sequential, Sinkhorn start + device kNN",
      dict(GRID_SOLVER, tpu_pipeline_windows=1, init_method="sinkhorn"), True),
 )
+# What the kernel table says of auction_loop and K5.
+CLUSTER_DESIGN = ("one thread-block cluster a solve (16 blocks x 1,024 threads), phases "
+                  "separated by the cluster's hardware barrier; K5: one cluster a window, "
+                  "one ordinary launch a batch")
 # H100 SXM peak f32 rate outside the tensor cores (NVIDIA's data sheet).
 F32_FLOP_PER_S = 67e12
 
@@ -291,7 +304,8 @@ def phase0():
 # tear_metrics.cu, K7 ``tear_scalars`` and K8 ``register_cuts`` in
 # tear_round.cu.
 SOURCES = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
-           "sinkhorn_sparse", "tear_round", "bid_compute", "sinkhorn_dense")
+           "sinkhorn_sparse", "tear_round", "bid_compute", "sinkhorn_dense",
+           "barrier_probe")
 KERNELS = ("auction_loop", "auction_bid", "tear_metrics", "radius_knn",
            "sinkhorn_sparse", "auction_loop_batch", "tear_metrics_batch",
            "tear_scalars", "register_cuts", "bid_compute", "sinkhorn_dense")
@@ -547,9 +561,27 @@ def phase2_knn(mc_ref, mc_align, device, smi_line):
         f"kernel {t_k:.4f} ms (median of 30), plain {t_p:.3f} ms (median of 3); bound "
         f"{flops / 1e9:.3f} GFLOP / 67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes "
         f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.2f} us); {smi_line}")
+
+    # k = 65, past the one-pass list of 64: two passes. At radius 800 a
+    # query has about 135 refs in range, so the second pass fills its column.
+    k65, r65 = 65, 800.0
+    before = radius_knn.launches
+    out_k = radius_knn(q, r, r65, k65)
+    passes = radius_knn.launches - before
+    out_p = radius_knn_plain(q, r, r65, k65)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "dist", "mask"), out_k, out_p):
+        require_equal(f"K3 k = {k65} {name}", a, b)
+    require(passes == 2, f"K3 k = {k65}: {passes} launches, expected 2 passes")
+    full = int(out_k[2].all(dim=1).sum())
+    require(full > 0, f"K3 k = {k65}: no query has {k65} refs in range")
+    t_k65 = median_ms(lambda: radius_knn(q, r, r65, k65), reps=10)
+    log(f"[phase 2] K3 k = {k65}, radius {r65:g}: idx, mask, dist bit-equal to the plain "
+        f"version in {passes} launches ({full} of {n} queries with all {k65} filled); "
+        f"kernel {t_k65:.4f} ms (median of 10); {smi_line}")
     return {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "rows_differing_from_ckdtree": rows}
+            "rows_differing_from_ckdtree": rows, "ms_k65": t_k65}
 
 
 def phase2_sinkhorn(pw, device, smi_line):
@@ -681,6 +713,64 @@ def phase2_small_window(device):
         tearing._finish_solve = orig
 
 
+def phase2_surcharge_order(device):
+    """ROADMAP C11 on the card: the host separation loop on the 144-point
+    window at dp = 0.1 with unequal triangle weights, where one cell takes
+    several different surcharges in a round, so that the order of the adds
+    shows in the bits. Every ``extra`` the card's loop hands the auction must
+    be bit-equal to the CPU loop's."""
+    import torch
+
+    from same_tpu_torch.solver import tearing
+
+    prob, costs, tris, _w, src, ref_xy = small_window_problem()
+    w = np.random.default_rng(1).uniform(1.0, 5.0, len(tris))
+    orig_add, orig_solve = tearing.add_in_list_order, tearing.solve_assignment
+    deltas, extras = [], {}
+
+    def spy_add(extra, rows, cols, vals):
+        deltas.append((list(rows), list(cols), list(vals)))
+        return orig_add(extra, rows, cols, vals)
+
+    tearing.add_in_list_order = spy_add
+    try:
+        for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            seen = extras[key] = []
+
+            def spy_solve(*a, _seen=seen, **kw):
+                extra = kw.get("extra_costs")
+                _seen.append(None if extra is None else extra.cpu().numpy().copy())
+                return orig_solve(*a, **kw)
+
+            tearing.solve_assignment = spy_solve
+            tearing.solve_with_tearing(
+                prob, costs, tris, w, src, ref_xy, delaunay_penalty=0.1,
+                penalty_coeff=100.0, allowed_flip_fraction=0.0, eps_final=1e-3,
+                device_loop=False, repair_budget=60.0, device=dev,
+            )
+    finally:
+        tearing.add_in_list_order, tearing.solve_assignment = orig_add, orig_solve
+    n_cuda = len(deltas) // 2
+    fwd = np.zeros(prob.costs.shape, np.float32)
+    rev = fwd.copy()
+    for rows, cols, vals in deltas[:n_cuda]:
+        orig_add(fwd, rows, cols, vals)
+        orig_add(rev, rows[::-1], cols[::-1], vals[::-1])
+    flips = int((fwd.view(np.int32) != rev.view(np.int32)).sum())
+    require(flips > 0, "surcharge order (C11): the window's deltas do not depend on "
+            "their order, so the check sees nothing")
+    got, want = extras["card"], extras["cpu"]
+    require(len(got) == len(want) and any(e is not None for e in got),
+            f"surcharge order (C11): {len(got)} solves on the card, {len(want)} on the CPU")
+    for r, (a, b) in enumerate(zip(got, want)):
+        require((a is None) == (b is None) and (a is None or np.array_equal(
+            a.view(np.int32), b.view(np.int32))),
+            f"surcharge order (C11): extra of solve {r} differs between card and CPU")
+    log(f"[phase 2] surcharge order (C11): host loop at dp = 0.1, {len(got)} solves, "
+        f"{sum(len(d[0]) for d in deltas[:n_cuda])} surcharge deltas ({flips} cells whose "
+        f"bits the reverse order changes): extra on the card bit-equal to the CPU loop's")
+
+
 def loop_bytes(n, C, S, Ps, stats, start_bytes):
     """Byte bound of one auction solve, from the kernel's device counters.
 
@@ -709,6 +799,10 @@ def loop_bytes(n, C, S, Ps, stats, start_bytes):
     boundary = (row * stats["released_rows_read"]
                 + stats["boundary_rounds"] * 4 * (row * n + 8 * S * Ps))
     return io + rounds + boundary + row * stats["unplaced_at_exit"]
+
+
+# The loop's phases as the kernel's phase_cycles counts them.
+PHASES = ("boundary", "bid", "resolve", "settle", "control")
 
 
 def wall_ms(fn, reps=5):
@@ -746,9 +840,10 @@ def compare_loop(tag, pd, costs, prices0, sched, patience, max_rounds=500000,
               slot_cols=pd.slot_cols, obj_patience=obj[0], obj_tol=obj[1],
               obj_band=obj[2])
     trace_k = torch.zeros((max_rounds, 2), dtype=torch.float32, device=dev)
+    cycles = torch.zeros(5, dtype=torch.int64, device=dev)
     inputs = [t for t in (prices0, assigned0, owner0) if t is not None]
     before = [t.clone() for t in inputs]
-    k = tal.auction_loop(*args, trace=trace_k, **kw)
+    k = tal.auction_loop(*args, trace=trace_k, phase_cycles=cycles, **kw)
     stats = dict(tal.auction_loop.last_stats)
     trace_p = []
     step = tal._control_step
@@ -804,6 +899,18 @@ def compare_loop(tag, pd, costs, prices0, sched, patience, max_rounds=500000,
         verdict = f"diverged at round {r} by the objective sum's rounding alone"
     t_k = wall_ms(lambda: tal.auction_loop(*args, **kw))
     t_p = wall_ms(lambda: tal.auction_loop_plain(*args, **kw))
+    # Where a solve's loop spends its time, by the cluster's first thread's
+    # clock: each phase up to the exit from its barrier.
+    cyc = cycles.cpu().numpy().astype(np.float64)
+    share = cyc / max(cyc.sum(), 1.0)
+    split = dict(zip(PHASES, share.round(4).tolist()))
+    bidding = max(k.rounds, 1)
+    log(f"[phase 2] auction_loop {tag}: the loop's clock cycles by phase "
+        f"(shares of {cyc.sum():.4g} cycles): " + ", ".join(
+            f"{name} {100 * x:.1f} %" for name, x in split.items())
+        + f"; at {t_k:.3f} ms a solve: " + ", ".join(
+            f"{name} {1e3 * t_k * x / bidding:.2f} us" for name, x in split.items())
+        + " a bidding round")
     nbytes = loop_bytes(n, C, S, Ps, stats, tensor_bytes(*inputs))
     b_ms = bound_ms(nbytes)
     unplaced = int((k.choice == C).sum())
@@ -812,12 +919,13 @@ def compare_loop(tag, pd, costs, prices0, sched, patience, max_rounds=500000,
         f"{stats['active_bidder_rounds']} active bidder-rounds, "
         f"{stats['resolved_slot_rounds']} resolved slot-rounds), phase {k.phase}, "
         f"polish {k.polish}, {stats['unplaced_at_exit']} unplaced at the loop's end, "
-        f"{unplaced} on no-match, grid {stats['grid']} blocks; "
+        f"{unplaced} on no-match, a cluster of {stats['cluster_blocks']} blocks; "
         f"kernel {t_k:.3f} ms = {1e3 * t_k / max(k.rounds, 1):.2f} us/round, "
         f"plain {t_p:.3f} ms = {1e3 * t_p / max(p.rounds, 1):.2f} us/round (median of 5); "
         f"bound {nbytes / 1e6:.2f} MB = {b_ms:.4f} ms; {smi_line}")
     return k, {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
-               "rounds": k.rounds, "unplaced_at_exit": stats["unplaced_at_exit"]}
+               "rounds": k.rounds, "unplaced_at_exit": stats["unplaced_at_exit"],
+               "phase_shares": split}
 
 
 def random_problem(nq, m, seed=3):
@@ -1260,7 +1368,7 @@ def phase7(smi_line):
 # ----------------------------------------------------------------------------
 
 def luad_window(cells):
-    from bench import make_instance
+    from same_tpu_torch.instances import make_instance
     from same_tpu_torch import greedy_triangle_collapse
 
     t0 = time.time()
@@ -1795,7 +1903,6 @@ def mesh_grid_run(mc_ref, mc_align, seq, smi_line):
 
     from same_tpu_torch import kernels, merge_window_matches_unique_ref
     from same_tpu_torch import sliding_window_matching
-    from same_tpu_torch.kernels.auction_loop import batch_capacity
     from same_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh()
@@ -1825,23 +1932,16 @@ def mesh_grid_run(mc_ref, mc_align, seq, smi_line):
         f"(windows, [n_pad, C], S) {buckets}, {len(matches)} rows, {len(merged)} after the "
         f"merge; launches {json.dumps(launches)}")
 
-    # Launch counts: one K5 call and one K6 launch a tear round of each
-    # batch, K5 in as many launches as co-residency needs; no solo solve
-    # except an eps-retry re-solve.
+    # Launch counts: exactly one K5 launch (one cluster a running window)
+    # and one K6 launch a tear round of each batch; no solo solve except an
+    # eps-retry re-solve.
     k5_calls = sum(max(d["rounds_used"] for d in b["datas"]) for b in spy.batches)
-    k5_want = 0
-    for b in spy.batches:
-        p0 = b["args"][0][0]
-        per_launch, _g = batch_capacity(p0.costs.shape[0], p0.n_slots, mesh[0])
-        for r in range(max(d["rounds_used"] for d in b["datas"])):
-            running = sum(d["rounds_used"] > r for d in b["datas"])
-            k5_want += -(-running // per_launch)
     retries = [i for i, res in enumerate(results) if "eps_retry" in res.info]
     log(f"[phase 6] (f) batch tear rounds {k5_calls}; K5 launches {launches['auction_loop_batch']} "
-        f"(expected {k5_want}), K6 launches {launches['tear_metrics_batch']}; eps-retry "
+        f"(expected {k5_calls}), K6 launches {launches['tear_metrics_batch']}; eps-retry "
         f"re-solves {retries}, solo auction_loop launches {launches['auction_loop']}")
-    require(launches["auction_loop_batch"] == k5_want > 0,
-            f"mesh grid: K5 launched {launches['auction_loop_batch']} times, expected {k5_want}")
+    require(launches["auction_loop_batch"] == k5_calls > 0,
+            f"mesh grid: K5 launched {launches['auction_loop_batch']} times, expected {k5_calls}")
     require(launches["tear_metrics_batch"] == k5_calls,
             f"mesh grid: K6 launched {launches['tear_metrics_batch']} times for {k5_calls} rounds")
     # K7 once a batched round, K8 once a round in which a window registered
@@ -2001,7 +2101,7 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
 
     from same_tpu_torch.kernels import auction_loop, tear_metrics
     from same_tpu_torch.kernels.auction_loop import (
-        auction_loop_batch, auction_loop_batch_plain, batch_capacity,
+        auction_loop_batch, auction_loop_batch_plain, cluster_shape,
     )
     from same_tpu_torch.kernels.tear_metrics import (
         tear_metrics_batch, tear_metrics_batch_plain,
@@ -2028,8 +2128,11 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
     stop = [natural_stop_args(n_pad, p.eps_solver, 128) for p in pws]
     tol = np.asarray([s[1] for s in stop], np.float32)
     zeros = torch.zeros((B, S + 1), dtype=torch.float32, device=device)
+    before = auction_loop_batch.launches
     k, stats, solo = compare_batch_to_solo("(a)", st, zeros, sched, budget, 128, tol)
-    per_launch, g = batch_capacity(n_pad, S, device)
+    require(auction_loop_batch.launches - before == 1,
+            f"K5 (a): {auction_loop_batch.launches - before} launches for {B} windows")
+    blocks, threads, held = cluster_shape(device)
     args = (st["costs"], st["slots"], st["valid"], st["nm"], zeros, sched, budget)
     kw = dict(slot_rows=st["slot_rows"], slot_cols=st["slot_cols"], obj_patience=128,
               obj_tol=tol)
@@ -2055,15 +2158,16 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
                                      for key, v in stats.items()}, 4 * (S + 1))
         for b in range(B))
     b_ms = bound_ms(nbytes)
-    log(f"[phase 6] (a) K5 on {B} windows of [{n_pad}, {C}], S = {S} (grid {g} blocks a "
-        f"window, {per_launch} windows a launch), cold, full schedule, budget {budget}: "
+    log(f"[phase 6] (a) K5 on {B} windows of [{n_pad}, {C}], S = {S} (one launch, a cluster "
+        f"of {blocks} x {threads} a window, {held} clusters held at once), cold, full "
+        f"schedule, budget {budget}: "
         f"bit-equal to {B} solo launches and to the plain version (max abs err {err}); rounds "
         f"{k.rounds.tolist()}; K5 {t_k:.3f} ms, {B} solo launches {t_solo:.3f} ms, plain "
         f"{t_p:.1f} ms (median of 5, 5; one call); bound {nbytes / 1e6:.2f} MB = {b_ms:.4f} ms "
         f"(B x the per-window counters); {smi_line}")
     out["k5"] = {"err": err, "ms": t_k, "solo_ms": t_solo, "plain_ms": t_p, "bound_ms": b_ms,
-                 "windows": B, "rounds": k.rounds.tolist(), "grid": g,
-                 "windows_per_launch": per_launch}
+                 "windows": B, "rounds": k.rounds.tolist(), "cluster_blocks": blocks,
+                 "cluster_threads": threads, "clusters_held": held}
 
     # (b) K5 against its plain version on three 144-point windows.
     smalls = [small_window_problem(seed)[0] for seed in (7, 8, 9)]
@@ -2087,12 +2191,12 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
             f"{smalls[0].costs.shape[1]}], patience {patience}: bit-equal to the plain version, "
             f"rounds {kk.rounds.tolist()}")
 
-    # (c) More windows than one launch holds: copies of the LUAD window.
+    # (c) More windows than the card holds clusters at once: copies of the
+    # LUAD window, in one launch; the later clusters wait for a free place.
     lp = to_device(luad_pw.problem, device)
     ln, lC = luad_pw.problem.costs.shape
     lS = luad_pw.problem.n_slots
-    l_per_launch, lg = batch_capacity(ln, lS, device)
-    copies = max(10, l_per_launch + 1)
+    copies = held + 1
     eps = luad_pw.eps_solver
     lsched = np.asarray([eps * 64, eps * 8, eps], np.float32)
     lsched = np.tile(np.concatenate([lsched, np.full(13, lsched[-1], np.float32)]), (copies, 1))
@@ -2115,24 +2219,22 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
                 f"K5 (c) copy {b}: rounds/phase/polish differ from the solo launch")
         for f in ("choice", "prices", "owner"):
             require_equal(f"K5 (c) copy {b} {f}", getattr(kc, f)[b], getattr(one, f))
-    require(n_launches == -(-copies // l_per_launch) >= 2,
-            f"K5 (c): {n_launches} launches for {copies} windows at {l_per_launch} a launch")
-    log(f"[phase 6] (c) K5 on {copies} copies of the LUAD window ([{ln}, {lC}], S = {lS}, grid "
-        f"{lg} blocks a window, {l_per_launch} windows a launch): {n_launches} launches, every "
+    require(n_launches == 1, f"K5 (c): {n_launches} launches for {copies} windows")
+    log(f"[phase 6] (c) K5 on {copies} copies of the LUAD window ([{ln}, {lC}], S = {lS}; "
+        f"the card holds {held} clusters of {blocks} x {threads} at once): one launch, every "
         f"copy bit-equal to the solo launch ({one.rounds} rounds)")
-    # A window wider than the batch kernel's co-resident grid: both paths
-    # cap g there, so K5 still runs it, bit-equal to the solo launch.
+    # A window wider than the cluster: each thread strides over 5 of its
+    # 73,729 slots, bit-equal to the solo launch.
     wide_p = random_problem(2048, 72000)
     wide = to_device(wide_p, device)
     wn, wS = wide_p.costs.shape[0], wide_p.n_slots
-    w_per_launch, wg = batch_capacity(wn, wS, device)
     kwide, _stats, _solo = compare_batch_to_solo(
         "(c) wide", copies_of(wide, 2),
         torch.zeros((2, wS + 1), dtype=torch.float32, device=device),
         np.tile(default_eps_schedule(wide_p, 0.05), (2, 1)), 20000, 0, 0.0)
-    log(f"[phase 6] (c) K5 on 2 copies of a window of {wn} bidders among S = {wS} slots "
-        f"(widest phase {-(-(wS + 1) // 256)} blocks, grid {wg}, {w_per_launch} a launch): "
-        f"bit-equal to the solo launch ({kwide.rounds.tolist()} rounds)")
+    log(f"[phase 6] (c) K5 on 2 copies of a window of {wn} bidders among S = {wS} slots, "
+        f"one cluster of {blocks} x {threads} each ({-(-(wS + 1) // (blocks * threads))} "
+        f"slots a thread): bit-equal to the solo launch ({kwide.rounds.tolist()} rounds)")
 
     # (d) K6 on the bucket's windows against solo K2 launches and its plain
     # version, at (a)'s end state and a sparse 75.0 surcharge.
@@ -2449,6 +2551,7 @@ def main():
     k10 = phase2_sinkhorn_dense(device, smi_line)
     loop = phase2_loop(pw, device, smi_line)
     phase2_small_window(device)
+    phase2_surcharge_order(device)
     _bench, bench_launches = phase7(smi_line)
     if args.profile:
         profile_solve(pw, device, args.profile)
@@ -2466,6 +2569,11 @@ def main():
     grid_launches = {label: run["launches"] for (label, _s, _d), run in zip(GRID_RUNS, grid)}
 
     a = loop["a"]
+    probe = _bench["barriers"]
+    barrier_us = {
+        **{f"software_{g}_blocks": us for g, us in probe["soft"].items()},
+        **{f"cluster_{b}x{t}": c["us"] for (b, t), c in probe["cluster"].items()},
+    }
     kernels = [
         {
             "name": "auction_loop", "route": "cuda",
@@ -2475,6 +2583,8 @@ def main():
             "max_abs_err": max(c["err"] for c in loop.values()),
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+            "us_per_round": 1e3 * a["ms"] / max(a["rounds"], 1), "design": CLUSTER_DESIGN,
+            "barrier_us": barrier_us, "phase_shares": a["phase_shares"],
             "cases": {k: {kk: c[kk] for kk in ("ms", "plain_ms", "bound_ms", "rounds")}
                       for k, c in loop.items()},
         },
@@ -2509,6 +2619,7 @@ def main():
             "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
             "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
             "rows_differing_from_ckdtree": k3["rows_differing_from_ckdtree"],
+            "ms_k65": k3["ms_k65"],
         },
         {
             "name": "sinkhorn_sparse", "route": "cuda",
@@ -2534,8 +2645,9 @@ def main():
             "max_abs_err": k5["err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
             "bound_ms": k5["bound_ms"], "bound_by": "bytes", "library_ms": None,
             "windows": k5["windows"], "solo_launches_ms": k5["solo_ms"],
-            "rounds": k5["rounds"], "grid_per_window": k5["grid"],
-            "windows_per_launch": k5["windows_per_launch"],
+            "rounds": k5["rounds"], "design": CLUSTER_DESIGN,
+            "cluster_blocks": k5["cluster_blocks"], "cluster_threads": k5["cluster_threads"],
+            "clusters_held": k5["clusters_held"],
         },
         {
             "name": "tear_metrics_batch", "route": "cuda",

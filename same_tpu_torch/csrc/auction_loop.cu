@@ -1,9 +1,8 @@
 // `auction_loop`: one whole auction solve (every epsilon phase, the polish
 // repeats, the boundary steps and the final placement) in ONE persistent
-// cooperative launch; and K5 `auction_loop_batch`: the same solve for each
-// window of a batch of same-shape windows ([B, n, C] stacks), in one
-// cooperative launch per batch (or a few, when the batch's blocks cannot all
-// be co-resident).
+// launch of ONE thread-block cluster; and K5 `auction_loop_batch`: the same
+// solve for each window of a batch of same-shape windows ([B, n, C] stacks),
+// one cluster a window, all in one launch.
 //
 // Replaces
 //   - examples/bench_pallas.py:122 (the Pallas bid compute, through the
@@ -25,11 +24,23 @@
 // S = 28672, i.e. well under 0.1 us at 3.35 TB/s, and the whole working set
 // (~5 MB) stays in the 50 MB L2. The device counters (active bidders,
 // resolved slots, rows the boundary releases read) give chip_smoke.py this
-// count per solve. What bounds a round is the grid-wide barrier between its
-// phases, a few us each: three per bidding round, 18 more on a boundary
-// round.
+// count per solve. What bounds a round is latency: the barrier between its
+// phases (three per bidding round, 18 more on a boundary round) and, inside
+// the bid, each active bidder's chain of C + 1 dependent loads (valid flag,
+// slot, price) in row_top2. On an H100 (700 W) the software grid barrier of
+// the cooperative design before this one took 1.89 us at 113 blocks, the
+// cluster barrier takes 0.76 us, and the bid phase is about half of a
+// round (the kernel's phase_cycles; PERF.md, section 5).
 //
 // What the design does about it:
+//   - one cluster a solve: kClusterBlocks blocks of kThreads threads on
+//     neighbouring SMs, which synchronise through the cluster's hardware
+//     barrier (barrier.cluster.arrive.release / barrier.cluster.wait.acquire):
+//     no global atomic, no spin, no cooperative launch. The shape is a
+//     constant, chosen on the card with the barrier probe of
+//     same_tpu_torch/microbench.py (row (e)) and the solve's time (PERF.md,
+//     section 6). At first use the host checks that the card holds one
+//     cluster of it (cudaOccupancyMaxActiveClusters) and fails otherwise;
 //   - no host trip: the loop control runs on the card, redundantly in every
 //     block from the same global partials, so all blocks leave the loop on the
 //     same round without a fourth barrier. The host reads one small stats
@@ -39,13 +50,13 @@
 //     assignments and owners into it and never writes the inputs;
 //   - as few barriers as the semantics allow: bid | resolve | settle, with
 //     the control phase after the settle barrier; the `moved` flag and the
-//     objective partials are double-buffered by round parity, so the next
-//     round may start while a slow block still reads the last one's;
-//   - the grid is never larger than the co-resident maximum (queried once,
-//     cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, the smaller of the
-//     solo and the batch kernel's) and no larger than the widest phase needs:
-//     extra blocks would only add barrier arrivals.
-//     Every phase loops grid-stride, so any window size works.
+//     objective partials are double-buffered by round parity;
+//   - the working state (keys, prices, owners, assignments) stays in global
+//     memory, read through ld_state (L2; the whole set fits there): the round
+//     bodies, shared with K1, read it that way. Every phase loops
+//     cluster-stride over its rows or slots, so any window size works;
+//   - the main path's row widths (C = 24 and 8) get a copy of the loops over
+//     rows with C a compile-time constant (at_width).
 //
 // Semantics kept exactly:
 //   - the boundary step's person-side conflict (scatter-max on surplus, then
@@ -56,31 +67,41 @@
 //   - `moved` is any bid, any assignment change or any reverse-drain win
 //     (auction.py:293-295); each round's flag is zeroed one round ahead, in a
 //     phase no block reads it in;
-//   - the per-round objective is summed in a fixed order (per thread over its
-//     grid-stride items, then a shared-memory tree per block, then a tree over
-//     the block partials), so the same inputs give the same rounds on every
-//     run. The order is not torch's: at obj_patience > 0 a stall decision can
-//     flip on the last bit (ROADMAP C6);
+//   - the per-round objective is summed in one fixed order that depends on
+//     the row index only, whatever the cluster's shape (the order of the
+//     cooperative design before it, whose grid gave each thread at most one
+//     row):
+//       1. rows 256c .. 256c+255 form chunk c; leaf i of the chunk is
+//          0 + value(row 256c + i), or 0 past the last row; the 256 leaves go
+//          into a halving tree (leaf i += leaf i + w for w = 128, 64, ..., 1);
+//       2. leaf k of the second level is 0 + P[k] + P[k + 256] + ... in that
+//          order over the chunk sums P, zero where there is none; the 256
+//          leaves go into the same halving tree.
+//     A thread that holds two rows (a window wider than the cluster) sums
+//     each in its own chunk, so the order holds. It is not torch's: at
+//     obj_patience > 0 a stall decision can flip on the last bit (ROADMAP
+//     C6);
 //   - f32 control (best_obj - obj_tol and the like) uses __fsub_rn, and the
 //     integer rule (it - phase_start) / 3 is on non-negative ints.
 //   - the placement is folded into the tail as 4 passes of two phases each,
 //     with an atomicMin winner per slot.
 //
-// K5 runs the same `solve` body on each window's own range of g blocks, g
-// being the solo grid of its (n, S): the grid-stride partitions, the barrier
-// arrivals and the fixed-order objective sum depend only on (block, g), so
-// each window's choice, prices, owners, rounds, phase and polish are those of
-// a solo launch on the same inputs. Windows share no barrier: a window that
-// finishes early lets its blocks leave, and the windows of a tear loop that
-// has stopped are not listed at all. What bounds it is what bounds one solve
-// (the barriers), now paid once for the batch rather than once per window.
+// K5 runs the same `solve` body on one cluster a window: cluster k of the
+// launch solves window windows[k]. The partition of the work depends only on
+// the block's rank in its cluster, and the objective's order only on the row
+// index, so each window's choice, prices, owners, rounds, phase and polish
+// are those of a solo launch on the same inputs. Windows share no barrier:
+// when the card cannot hold every window's cluster at once, the later ones
+// wait for a free place, in the same launch. The windows of a tear loop that
+// has stopped are not listed at all.
 //
-// Memory order: a grid barrier is __syncthreads, a __threadfence and an
-// arrival on a global counter by one thread per block, a spin on a volatile
-// generation word, a __threadfence and __syncthreads: it is safe only under
-// a cooperative launch, which guarantees co-residency. Arrays other blocks
-// write are read with ld_state (L1 bypassed) and never through a
-// const __restrict__ pointer.
+// Memory order: the cluster barrier's arrive has release and its wait
+// acquire semantics at cluster scope, which covers the global memory the
+// cluster's blocks share. Every thread of every block reaches every barrier:
+// the loops around them depend only on the cluster-uniform control and
+// sizes. Arrays other blocks write are read with ld_state (L1 bypassed) and
+// never through a const __restrict__ pointer. No block reads another's
+// shared memory, so no barrier is needed before the blocks exit.
 
 #include "auction_round.cuh"
 
@@ -88,7 +109,17 @@ namespace {
 
 using namespace same_auction;
 
-constexpr int kThreads = 256;
+// The cluster: kClusterBlocks blocks of kThreads threads a solve.
+constexpr int kThreads = 1024;
+constexpr int kClusterBlocks = 16;
+constexpr int kStride = kThreads * kClusterBlocks;
+// Rows a chunk of the objective sum, and leaves of each of its trees.
+constexpr int kChunk = 256;
+static_assert(kThreads % kChunk == 0, "a block holds whole chunks");
+// Phases of the loop that phase_cycles splits it into, for diagnosis: the
+// boundary step, bid, resolve and settle, each up to the exit from its last
+// barrier, and the control up to the next round's start.
+enum Phase { kBoundary, kBid, kResolve, kSettle, kControl, kPhases };
 
 struct LoopArgs {
   // Read-only problem.
@@ -111,6 +142,7 @@ struct LoopArgs {
   int* owner;              // [S+1]
   long long* stats;        // [10]
   float* trace;            // [max_rounds, 2] (moved, cur_obj) or null
+  long long* phase_cycles; // [kPhases] clock64 cycles a phase, or null
   // Workspace.
   unsigned long long* keys;   // [S+1] bid keys
   unsigned long long* pkeys;  // [n+1] reverse-drain person keys
@@ -123,39 +155,44 @@ struct LoopArgs {
   float* rev_price;           // [S]
   int* place_win;             // [2, S+1]
   int* moved;                 // [2]
-  float* partials;            // [2, grid]
+  float* partials;            // [2, chunks(n)] chunk sums of the objective
   unsigned long long* active;   // [1] bidder-rounds of active bidders
   unsigned long long* resolved; // [1] slot-rounds with a winning bid
   unsigned long long* held;     // [1] rows the boundary releases read
   unsigned long long* unplaced; // [1] bidders unplaced when the loop ends
-  unsigned int* bar;          // [2] barrier count and generation
 };
 
-// Barrier over the `nblocks` blocks of one solve (the whole grid of a solo
-// launch, one window's range of a batched launch).
-__device__ __forceinline__ void grid_barrier(unsigned int* bar,
-                                             unsigned int nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      // A barrier that never opens is a bug: trap (a launch error on the
-      // host) after seconds of spinning instead of hanging the card.
-      unsigned int spins = 0;
-      while (*gen == g) {
-        __nanosleep(32);
-        if (++spins == (1u << 28)) __trap();
-      }
-    }
-    __threadfence();
+__host__ __device__ __forceinline__ int chunks(int n) {
+  return (n + kChunk - 1) / kChunk;
+}
+
+// The hardware barrier of the cluster: every thread of its blocks arrives.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Calls f with the row width C, as a compile-time constant where C is one
+// the main path meets: 24 (knn 8 x ref match multiplier 3, the LUAD and
+// grid windows) or 8. The bodies' column loop (row_top2: C + 1 values with a
+// dependent price gather each) bounds a bidding round; with a constant trip
+// count the compiler unrolls it and issues several columns' loads at once,
+// with the same arithmetic in the same order. Any other C runs the loop as
+// written.
+template <int W>
+struct Width {
+  __device__ constexpr operator int() const { return W; }
+};
+
+template <class F>
+__device__ __forceinline__ void at_width(int C, F&& f) {
+  if (C == 24) {
+    f(Width<24>{});
+  } else if (C == 8) {
+    f(Width<8>{});
+  } else {
+    f(C);
   }
-  __syncthreads();
 }
 
 // Adds each thread's v to a device counter: one atomic per warp. Every
@@ -168,18 +205,24 @@ __device__ __forceinline__ void count_add(unsigned long long* ctr,
   }
 }
 
-// Fixed-order block sum of one value per thread; the result is valid in
-// thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// Halving-tree sum of the 256 leaves of each group of 256 threads (leaf i
+// += leaf i + w for w = 128, ..., 1): the result is valid in the group's
+// first thread. Every thread of the block calls it.
+__device__ __forceinline__ float chunk_sum(float v, float* red) {
+  const int i = threadIdx.x & (kChunk - 1);
   red[threadIdx.x] = v;
   __syncthreads();
-  for (int w = kThreads / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
+  for (int w = kChunk / 2; w >= 32; w >>= 1) {
+    if (i < w) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + w]);
     __syncthreads();
   }
-  float out = red[0];
-  __syncthreads();
-  return out;
+  // The last five steps inside the group's first warp: lane i reads lane
+  // i + w, as the shared-memory tree reads leaf i + w.
+  v = red[threadIdx.x];
+  for (int w = 16; w > 0; w >>= 1) {
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, w));
+  }
+  return v;
 }
 
 // Loop control of one bidding round: kernels/auction_loop.py::_control_step.
@@ -225,25 +268,28 @@ __device__ __forceinline__ void control_step(Control& c, bool moved,
 
 // Release of eps-CS violators and zeroing of unowned prices
 // (auction.py:131-147): two phases.
-__device__ void boundary_release(const LoopArgs& a, float eps, int tid,
-                                 int stride, int nblocks) {
-  const int n = a.n, C = a.C, S = a.S;
+__device__ __forceinline__ void boundary_release(const LoopArgs& a, float eps,
+                                                 int tid) {
+  const int n = a.n, S = a.S;
   unsigned int n_held = 0;
-  for (int b = tid; b < n; b += stride) {
-    int as = ld_state(a.assigned + b);
-    if (as < 0 || as >= C) continue;
-    ++n_held;
-    const size_t row = static_cast<size_t>(b) * C;
-    Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices, row, C);
-    float held = col_value(a.costs, a.slots, a.valid, a.prices, row + as);
-    if (held < __fsub_rn(t.best, eps)) {
-      a.assigned[b] = -1;
-      a.owner[a.slots[row + as]] = -1;
+  at_width(a.C, [&](auto width) {
+    const int C = width;
+    for (int b = tid; b < n; b += kStride) {
+      int as = ld_state(a.assigned + b);
+      if (as < 0 || as >= C) continue;
+      ++n_held;
+      const size_t row = static_cast<size_t>(b) * C;
+      Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices, row, C);
+      float held = col_value(a.costs, a.slots, a.valid, a.prices, row + as);
+      if (held < __fsub_rn(t.best, eps)) {
+        a.assigned[b] = -1;
+        a.owner[a.slots[row + as]] = -1;
+      }
     }
-  }
+  });
   count_add(a.held, n_held);
-  grid_barrier(a.bar, nblocks);
-  for (int s = tid; s <= S; s += stride) {
+  cluster_sync();
+  for (int s = tid; s <= S; s += kStride) {
     if (s == S) {
       a.owner[S] = -1;
       a.prices[S] = 0.0f;
@@ -251,27 +297,30 @@ __device__ void boundary_release(const LoopArgs& a, float eps, int tid,
       a.prices[s] = 0.0f;
     }
   }
-  grid_barrier(a.bar, nblocks);
+  cluster_sync();
 }
 
 // One reverse-auction drain (auction.py:164-237): four phases. A win raises
 // the round's moved flag.
-__device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
-                             int nblocks, int* moved_flag) {
+__device__ __forceinline__ void reverse_once(const LoopArgs& a, float eps,
+                                             int tid, int* moved_flag) {
   const int n = a.n, C = a.C, S = a.S, Ps = a.Ps;
   // (1) Per bidder: top-2 at the current prices.
-  for (int b = tid; b < n; b += stride) {
-    Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices,
-                      static_cast<size_t>(b) * C, C);
-    a.top_best[b] = t.best;
-    a.top_second[b] = isfinite(t.second) ? t.second : t.best;
-    a.top_col[b] = t.col;
-  }
-  grid_barrier(a.bar, nblocks);
+  at_width(C, [&](auto width) {
+    const int W = width;
+    for (int b = tid; b < n; b += kStride) {
+      Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices,
+                        static_cast<size_t>(b) * W, W);
+      a.top_best[b] = t.best;
+      a.top_second[b] = isfinite(t.second) ? t.second : t.best;
+      a.top_col[b] = t.col;
+    }
+  });
+  cluster_sync();
   // (2) Per slot: its best person at exclusive profit; an eligible claim
   // goes into the person's key.
   const float two_eps = __fmul_rn(2.0f, eps);
-  for (int s = tid; s < S; s += stride) {
+  for (int s = tid; s < S; s += kStride) {
     const size_t base = static_cast<size_t>(s) * Ps;
     float ms = neg_inf();
     int arg = 0;
@@ -303,11 +352,11 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
     }
     a.rev_person[s] = eligible ? person : -1;
   }
-  grid_barrier(a.bar, nblocks);
+  cluster_sync();
   // (3) Per slot: the person's highest surplus, then smallest slot, wins.
   // The winner moves the person: its old slot is freed, it takes the column.
   bool any = false;
-  for (int s = tid; s < S; s += stride) {
+  for (int s = tid; s < S; s += kStride) {
     int person = a.rev_person[s];
     if (person < 0) continue;
     unsigned long long key = ld_state(a.pkeys + person);
@@ -323,10 +372,10 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
     a.assigned[person] = a.rev_col[s];
   }
   if (any) *moved_flag = 1;
-  grid_barrier(a.bar, nblocks);
+  cluster_sync();
   // (4) Per slot: winners take their person at the attract price; freed and
   // unclaimed unowned slots at zero. The winner resets its person's key.
-  for (int s = tid; s <= S; s += stride) {
+  for (int s = tid; s <= S; s += kStride) {
     if (s == S) {
       a.prices[S] = 0.0f;
       a.owner[S] = -1;
@@ -341,26 +390,35 @@ __device__ void reverse_once(const LoopArgs& a, float eps, int tid, int stride,
       a.prices[s] = 0.0f;
     }
   }
-  grid_barrier(a.bar, nblocks);
+  cluster_sync();
 }
 
-// One whole solve on blocks [0, nblocks) of its own (`block` is this block's
-// index among them). Every partition of the work and every sum order depends
-// only on (block, nblocks), so a window solved inside a batched launch gives
-// the same bits as a solo launch with a grid of nblocks.
-__device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks) {
+// One whole solve by the cluster whose block of rank `rank` this is.
+__device__ __forceinline__ void solve(const LoopArgs& a, int rank) {
   __shared__ float red[kThreads];
   __shared__ Control s_ctl;
+  __shared__ long long s_cycles[kPhases];
   const int n = a.n, C = a.C, S = a.S, P = a.P;
-  const int tid = block * blockDim.x + threadIdx.x;
-  const int stride = nblocks * blockDim.x;
+  const int n_chunks = chunks(n);
+  const int tid = rank * kThreads + threadIdx.x;
+  // With phase_cycles, the first thread of the cluster adds the cycles since
+  // the last mark to a phase's count at each mark (after a barrier).
+  const bool timed = a.phase_cycles != nullptr && tid == 0;
+  long long mark = 0;
+  auto lap = [&](int phase) {
+    if (timed) {
+      const long long now = clock64();
+      s_cycles[phase] += now - mark;
+      mark = now;
+    }
+  };
 
   // Prologue: the working state from the caller's (never written) inputs.
-  for (int b = tid; b < n; b += stride) {
+  for (int b = tid; b < n; b += kStride) {
     a.assigned[b] = a.assigned0 ? a.assigned0[b] : -1;
     a.pkeys[b] = 0ull;
   }
-  for (int s = tid; s <= S; s += stride) {
+  for (int s = tid; s <= S; s += kStride) {
     a.prices[s] = a.prices0[s];
     a.owner[s] = a.owner0 ? a.owner0[s] : -1;
     a.keys[s] = 0ull;
@@ -380,50 +438,61 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
   if (threadIdx.x == 0) {
     s_ctl = Control{0, 1, 0, 0, 0, 0, 0, inf, inf};
   }
+  if (timed) {
+    for (int k = 0; k < kPhases; ++k) s_cycles[k] = 0;
+  }
   long long boundary_rounds = 0;
-  grid_barrier(a.bar, nblocks);
+  cluster_sync();
+  if (timed) mark = clock64();
 
   while (true) {
     __syncthreads();
     const Control ctl = s_ctl;
     __syncthreads();
+    if (ctl.it > 0) lap(kControl);
     if (!(ctl.phase < P && ctl.it < a.max_rounds)) break;
     const float eps = a.eps_sched[ctl.phase < P - 1 ? ctl.phase : P - 1];
     const int par = ctl.it & 1;
     int* moved_flag = a.moved + par;
+    float* partials = a.partials + par * n_chunks;
 
     if (ctl.boundary) {
       ++boundary_rounds;
-      boundary_release(a, eps, tid, stride, nblocks);
+      boundary_release(a, eps, tid);
       if (a.slot_rows != nullptr) {
         for (int d = 0; d < 4; ++d) {
-          reverse_once(a, eps, tid, stride, nblocks, moved_flag);
+          reverse_once(a, eps, tid, moved_flag);
         }
       }
+      lap(kBoundary);
     }
 
     // Bid.
     bool bid_moved = false;
     unsigned int n_active = 0;
-    for (int b = tid; b < n; b += stride) {
-      int as = ld_state(a.assigned + b);
-      int na;
-      int col = bid_body(b, as, a.costs, a.slots, a.valid, a.nm, a.prices, n,
-                         C, eps, a.keys, &na);
-      n_active += (as < 0 || as == C) ? 1u : 0u;
-      a.bid_col[b] = col;
-      if (na != as) a.assigned[b] = na;
-      bid_moved = bid_moved || col >= 0 || na != as;
-    }
+    at_width(C, [&](auto width) {
+      const int W = width;
+      for (int b = tid; b < n; b += kStride) {
+        int as = ld_state(a.assigned + b);
+        int na;
+        int col = bid_body(b, as, a.costs, a.slots, a.valid, a.nm, a.prices, n,
+                           W, eps, a.keys, &na);
+        n_active += (as < 0 || as == W) ? 1u : 0u;
+        a.bid_col[b] = col;
+        if (na != as) a.assigned[b] = na;
+        bid_moved = bid_moved || col >= 0 || na != as;
+      }
+    });
     if (bid_moved) *moved_flag = 1;
     count_add(a.active, n_active);
-    grid_barrier(a.bar, nblocks);
+    cluster_sync();
+    lap(kBid);
 
     // Resolve; the next round's flag is zeroed here (its last reader, the
     // control phase of the previous round, is behind the bid barrier).
     if (tid == 0) a.moved[par ^ 1] = 0;
     unsigned int n_resolved = 0;
-    for (int s = tid; s <= S; s += stride) {
+    for (int s = tid; s <= S; s += kStride) {
       if (s == S) {
         a.prices[S] = 0.0f;
         a.owner[S] = -1;
@@ -433,39 +502,50 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
       }
     }
     count_add(a.resolved, n_resolved);
-    grid_barrier(a.bar, nblocks);
+    cluster_sync();
+    lap(kResolve);
 
     // Settle, and the placement value of the round's state (unplaced
-    // bidders at their reservation cost).
-    float obj = 0.0f;
-    for (int b = tid; b < n; b += stride) {
-      int na = settle_body(b, a.bid_col[b], ld_state(a.assigned + b), a.slots,
-                           a.owner, C, a.assigned);
+    // bidders at their reservation cost): each chunk's sum into partials.
+    // The pass loop is uniform over the cluster, as chunk_sum needs.
+    for (int base = 0; base < n; base += kStride) {
+      const int b = base + tid;
+      float leaf = 0.0f;
+      if (b < n) {
+        int na = settle_body(b, a.bid_col[b], ld_state(a.assigned + b), a.slots,
+                             a.owner, C, a.assigned);
+        if (a.obj_patience > 0) {
+          float v = (na >= 0 && na < C) ? a.costs[static_cast<size_t>(b) * C + na]
+                                        : a.nm[b];
+          leaf = __fadd_rn(0.0f, v);
+        }
+      }
       if (a.obj_patience > 0) {
-        float v = (na >= 0 && na < C) ? a.costs[static_cast<size_t>(b) * C + na]
-                                      : a.nm[b];
-        obj = __fadd_rn(obj, v);
+        float part = chunk_sum(leaf, red);
+        const int c = b / kChunk;
+        if ((threadIdx.x & (kChunk - 1)) == 0 && c < n_chunks) partials[c] = part;
       }
     }
-    if (a.obj_patience > 0) {
-      float part = block_sum(obj, red);
-      if (threadIdx.x == 0) a.partials[par * nblocks + block] = part;
-    }
-    grid_barrier(a.bar, nblocks);
+    cluster_sync();
+    lap(kSettle);
 
-    // Control, in every block from the same global values.
+    // Control, in every block from the same global values: the chunk sums'
+    // tree in the block's first 256 threads. The flag's load is issued
+    // first, so that its latency hides behind the tree's.
+    const bool moved = threadIdx.x == 0 && ld_state(moved_flag) != 0;
     float cur_obj = inf;
     if (a.obj_patience > 0) {
       float v = 0.0f;
-      for (int k = threadIdx.x; k < nblocks; k += kThreads) {
-        v = __fadd_rn(v, ld_state(a.partials + par * nblocks + k));
+      if (threadIdx.x < kChunk) {
+        for (int c = threadIdx.x; c < n_chunks; c += kChunk) {
+          v = __fadd_rn(v, ld_state(partials + c));
+        }
       }
-      cur_obj = block_sum(v, red);
+      cur_obj = chunk_sum(v, red);
     }
     if (threadIdx.x == 0) {
       Control c = ctl;
-      bool moved = ld_state(moved_flag) != 0;
-      if (a.trace != nullptr && block == 0) {
+      if (a.trace != nullptr && rank == 0) {
         a.trace[2 * c.it] = moved ? 1.0f : 0.0f;
         a.trace[2 * c.it + 1] = cur_obj;
       }
@@ -482,7 +562,7 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
   for (int k = 0; k < 4; ++k) {
     int* win = a.place_win + (k & 1) * (S + 1);
     int* other = a.place_win + ((k & 1) ^ 1) * (S + 1);
-    for (int b = tid; b < n; b += stride) {
+    for (int b = tid; b < n; b += kStride) {
       int col = -1;
       if (ld_state(a.assigned + b) < 0) {
         if (k == 0) ++n_unplaced;
@@ -505,9 +585,9 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
       }
       a.bid_col[b] = col;
     }
-    grid_barrier(a.bar, nblocks);
-    for (int s = tid; s <= S; s += stride) other[s] = n;
-    for (int b = tid; b < n; b += stride) {
+    cluster_sync();
+    for (int s = tid; s <= S; s += kStride) other[s] = n;
+    for (int b = tid; b < n; b += kStride) {
       int col = a.bid_col[b];
       if (col == C) {
         a.assigned[b] = C;
@@ -522,7 +602,7 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
     }
     if (tid == 0) a.owner[S] = -1;
     if (k == 0) count_add(a.unplaced, n_unplaced);
-    grid_barrier(a.bar, nblocks);
+    cluster_sync();
   }
 
   if (tid == 0) {
@@ -532,10 +612,13 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int block, int nblocks)
     a.stats[2] = c.polish;
     a.stats[3] = boundary_rounds;
     a.stats[4] = static_cast<long long>(ld_state(a.active));
-    a.stats[5] = nblocks;
+    a.stats[5] = kClusterBlocks;
     a.stats[6] = static_cast<long long>(ld_state(a.unplaced));
     a.stats[7] = static_cast<long long>(ld_state(a.resolved));
     a.stats[8] = static_cast<long long>(ld_state(a.held));
+    if (timed) {
+      for (int k = 0; k < kPhases; ++k) a.phase_cycles[k] = s_cycles[k];
+    }
   }
 }
 
@@ -543,10 +626,10 @@ size_t align_up(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
 
 struct Layout {
   size_t keys, pkeys, active, resolved, held, unplaced, bid_col, top_best, top_second, top_col,
-      rev_person, rev_col, rev_price, place_win, moved, partials, bar, total;
+      rev_person, rev_col, rev_price, place_win, moved, partials, total;
 };
 
-Layout layout(int n, int S, int grid) {
+Layout layout(int n, int S) {
   Layout l{};
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -569,8 +652,7 @@ Layout layout(int n, int S, int grid) {
   l.rev_price = take(sizeof(float) * S);
   l.place_win = take(sizeof(int) * 2 * (S + 1));
   l.moved = take(sizeof(int) * 2);
-  l.partials = take(sizeof(float) * 2 * grid);
-  l.bar = take(sizeof(unsigned int) * 2);
+  l.partials = take(sizeof(float) * 2 * chunks(n));
   l.total = off;
   return l;
 }
@@ -593,21 +675,18 @@ __host__ __device__ void bind_workspace(LoopArgs& a, char* ws, const Layout& l) 
   a.place_win = reinterpret_cast<int*>(ws + l.place_win);
   a.moved = reinterpret_cast<int*>(ws + l.moved);
   a.partials = reinterpret_cast<float*>(ws + l.partials);
-  a.bar = reinterpret_cast<unsigned int*>(ws + l.bar);
 }
 
-__global__ void __launch_bounds__(kThreads) auction_loop_kernel(LoopArgs a) {
-  solve(a, blockIdx.x, gridDim.x);
+__global__ void __launch_bounds__(kThreads, 1) auction_loop_kernel(LoopArgs a) {
+  solve(a, static_cast<int>(blockIdx.x));
 }
 
 // K5 `auction_loop_batch`: a batch of same-shape windows stacked on a leading
-// axis, one cooperative launch. Window windows[k] of the launch owns blocks
-// [k * g, (k + 1) * g), g being the solo grid for its (n, S); it has its own
-// barrier words, control, moved flags, objective partials and workspace, and
-// no barrier spans two windows.
+// axis, one launch. Cluster k of the launch solves window windows[k], with
+// its own control, moved flags, objective partials and workspace.
 struct BatchArgs {
   LoopArgs base;            // window 0's pointers and the shared sizes
-  const int* windows;       // [launch windows] batch index of each range
+  const int* windows;       // [launch windows] batch index of each cluster
   const int* max_rounds;    // [B]
   const int* obj_patience;  // [B]
   const float* obj_tol;     // [B]
@@ -615,7 +694,6 @@ struct BatchArgs {
   char* workspace;          // [B, ws_stride]
   long long ws_stride;
   Layout lay;
-  int g;
 };
 
 __device__ LoopArgs window_args(const BatchArgs& ba, int w) {
@@ -644,21 +722,44 @@ __device__ LoopArgs window_args(const BatchArgs& ba, int w) {
   a.owner += w * S1;
   a.stats += static_cast<size_t>(w) * 10;
   a.trace = nullptr;
+  a.phase_cycles = nullptr;
   bind_workspace(a, ba.workspace + w * ba.ws_stride, ba.lay);
   return a;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 auction_loop_batch_kernel(BatchArgs ba) {
-  const int k = blockIdx.x / ba.g;
-  const LoopArgs a = window_args(ba, ba.windows[k]);
-  solve(a, blockIdx.x - k * ba.g, ba.g);
+  // The window's arguments once a block, in shared memory rather than in
+  // registers.
+  __shared__ LoopArgs s_args;
+  const int k = static_cast<int>(blockIdx.x) / kClusterBlocks;
+  if (threadIdx.x == 0) s_args = window_args(ba, ba.windows[k]);
+  __syncthreads();
+  solve(s_args, static_cast<int>(blockIdx.x) - k * kClusterBlocks);
 }
 
-// Co-resident grid of `kernel` on the current device, queried once per device
-// into `cached`. Returns a CUDA error code (cudaErrorNotSupported when the
-// device cannot launch cooperatively).
-int max_grid(const void* kernel, int* cached, int* out) {
+cudaLaunchConfig_t cluster_config(int clusters, cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * kClusterBlocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kClusterBlocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of the solve's shape the current device holds at once, for the
+// kernel with fewer (queried once per device into `cached`; a cluster of
+// more than 8 blocks is allowed first). An error code, or
+// cudaErrorLaunchOutOfResources when the device holds none.
+int max_clusters(int* out) {
+  static int cached[64] = {0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -666,80 +767,48 @@ int max_grid(const void* kernel, int* cached, int* out) {
     *out = cached[dev];
     return 0;
   }
-  int coop = 0, sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  int g = per_sm * sms;
-  if (dev >= 0 && dev < 64) cached[dev] = g;
-  *out = g;
-  return 0;
-}
-
-int solo_max_grid(int* out) {
-  static int cached[64] = {0};
-  return max_grid(reinterpret_cast<const void*>(auction_loop_kernel), cached, out);
-}
-
-int batch_max_grid(int* out) {
-  static int cached[64] = {0};
-  return max_grid(reinterpret_cast<const void*>(auction_loop_batch_kernel), cached, out);
-}
-
-// The grid of a window's solve, solo or batched: no wider than its widest
-// phase needs, and no wider than the co-resident maximum of either kernel, so
-// that a window gets the same g on both paths at every size (the batch kernel
-// holds fewer blocks an SM than the solo one).
-int grid_for(int n, int S, int* grid) {
-  int solo = 0, batch = 0;
-  int err = solo_max_grid(&solo);
-  if (err != 0) return err;
-  err = batch_max_grid(&batch);
-  if (err != 0) return err;
-  int g = solo < batch ? solo : batch;
-  int widest = n > S + 1 ? n : S + 1;
-  int need = (widest + kThreads - 1) / kThreads;
-  *grid = need < g ? (need > 0 ? need : 1) : g;
-  return 0;
-}
-
-// Windows of size (n, S) one batched launch can hold: all their blocks must
-// be co-resident. At least one, as grid_for never exceeds the batch kernel's
-// maximum.
-int batch_capacity(int n, int S, int* per_launch, int* grid) {
-  int err = grid_for(n, S, grid);
-  if (err != 0) return err;
-  int cap = 0;
-  err = batch_max_grid(&cap);
-  if (err != 0) return err;
-  *per_launch = cap / *grid;
+  const void* kernels[] = {reinterpret_cast<const void*>(auction_loop_kernel),
+                           reinterpret_cast<const void*>(auction_loop_batch_kernel)};
+  int fewest = 0;
+  for (int i = 0; i < 2; ++i) {
+    if (kClusterBlocks > 8) {
+      err = cudaFuncSetAttribute(kernels[i],
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(1, nullptr, &attr);
+    int held = 0;
+    err = cudaOccupancyMaxActiveClusters(&held, kernels[i], &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fewest = i == 0 || held < fewest ? held : fewest;
+  }
+  if (fewest < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (dev >= 0 && dev < 64) cached[dev] = fewest;
+  *out = fewest;
   return 0;
 }
 
 }  // namespace
 
 // Bytes of workspace one solve of this size needs (0 with an error code in
-// *err when the device cannot run the kernel). A batched solve takes this
-// many bytes per window.
+// *err when the device cannot hold one cluster of the solve's shape). A
+// batched solve takes this many bytes per window.
 extern "C" long long same_auction_loop_workspace(int n, int S, int* err) {
-  int grid = 0;
-  *err = grid_for(n, S, &grid);
+  int held = 0;
+  *err = max_clusters(&held);
   if (*err != 0) return 0;
-  return static_cast<long long>(layout(n, S, grid).total);
+  return static_cast<long long>(layout(n, S).total);
 }
 
-// Windows of size (n, S) one batched launch holds (0 with an error code in
-// *err); *grid gets the blocks of one window.
-extern "C" int same_auction_loop_batch_capacity(int n, int S, int* grid, int* err) {
-  int per_launch = 0;
-  *err = batch_capacity(n, S, &per_launch, grid);
-  return *err != 0 ? 0 : per_launch;
+// Clusters of the solve's shape the device holds at once (0 with an error
+// code in *err); *blocks and *threads get the shape.
+extern "C" int same_auction_loop_clusters(int* blocks, int* threads, int* err) {
+  int held = 0;
+  *blocks = kClusterBlocks;
+  *threads = kThreads;
+  *err = max_clusters(&held);
+  return *err != 0 ? 0 : held;
 }
 
 extern "C" int same_auction_loop(
@@ -748,12 +817,12 @@ extern "C" int same_auction_loop(
     const float* eps_sched, int P, const float* prices0, const int* assigned0,
     const int* owner0, int n, int C, int S, int max_rounds, int max_polish,
     int obj_patience, float obj_tol, int* assigned, float* prices, int* owner,
-    long long* stats, float* trace, void* workspace,
+    long long* stats, float* trace, long long* phase_cycles, void* workspace,
     long long workspace_bytes, void* stream) {
-  int grid = 0;
-  int err = grid_for(n, S, &grid);
+  int held = 0;
+  int err = max_clusters(&held);
   if (err != 0) return err;
-  Layout l = layout(n, S, grid);
+  Layout l = layout(n, S);
   if (workspace_bytes < static_cast<long long>(l.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -782,23 +851,21 @@ extern "C" int same_auction_loop(
   a.owner = owner;
   a.stats = stats;
   a.trace = trace;
+  a.phase_cycles = phase_cycles;
   bind_workspace(a, static_cast<char*>(workspace), l);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(auction_loop_kernel),
-                                  dim3(grid), dim3(kThreads), args, 0, st);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(1, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, auction_loop_kernel, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K5: solves the windows listed in `windows` (device array of n_windows batch
-// indices) of a [B, ...] stack, in as many consecutive cooperative launches
-// of whole windows as co-residency needs; *launches gets their number. Each
-// listed window's choice, prices, owners and stats row are written; the other
-// rows of the outputs are not touched. `workspace` holds ws_stride bytes per
-// batch window (same_auction_loop_workspace); it is cleared here.
+// indices) of a [B, ...] stack in one launch of n_windows clusters; *launches
+// gets 1 (0 for an empty list). Each listed window's choice, prices, owners
+// and stats row are written; the other rows of the outputs are not touched.
+// `workspace` holds ws_stride bytes per batch window
+// (same_auction_loop_workspace); each solve's prologue initialises its own.
 extern "C" int same_auction_loop_batch(
     const float* costs, const int* slots, const uint8_t* valid,
     const float* nm, const int* slot_rows, const int* slot_cols, int Ps,
@@ -809,13 +876,14 @@ extern "C" int same_auction_loop_batch(
     float* prices, int* owner, long long* stats, void* workspace,
     long long ws_stride, void* stream, int* launches) {
   *launches = 0;
-  int grid = 0, per_launch = 0;
-  int err = batch_capacity(n, S, &per_launch, &grid);
+  int held = 0;
+  int err = max_clusters(&held);
   if (err != 0) return err;
-  Layout l = layout(n, S, grid);
+  Layout l = layout(n, S);
   if (ws_stride < static_cast<long long>(l.total)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (n_windows == 0) return 0;
   BatchArgs ba;
   ba.base.costs = costs;
   ba.base.slots = slots;
@@ -841,6 +909,8 @@ extern "C" int same_auction_loop_batch(
   ba.base.owner = owner;
   ba.base.stats = stats;
   ba.base.trace = nullptr;
+  ba.base.phase_cycles = nullptr;
+  ba.windows = windows;
   ba.max_rounds = max_rounds;
   ba.obj_patience = obj_patience;
   ba.obj_tol = obj_tol;
@@ -848,24 +918,14 @@ extern "C" int same_auction_loop_batch(
   ba.workspace = static_cast<char*>(workspace);
   ba.ws_stride = ws_stride;
   ba.lay = l;
-  ba.g = grid;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Barrier counts start at 0; the rest of the workspace is initialised by
-  // each solve's prologue.
-  cudaError_t e = cudaMemsetAsync(workspace, 0, static_cast<size_t>(B) * ws_stride, st);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      cluster_config(n_windows, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, auction_loop_batch_kernel, ba);
   if (e != cudaSuccess) return static_cast<int>(e);
-  for (int first = 0; first < n_windows; first += per_launch) {
-    int count = n_windows - first < per_launch ? n_windows - first : per_launch;
-    ba.windows = windows + first;
-    void* args[] = {&ba};
-    e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(auction_loop_batch_kernel), dim3(count * grid),
-        dim3(kThreads), args, 0, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ++*launches;
-  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *launches = 1;
   return 0;
 }
 

@@ -15,6 +15,14 @@
 // registers for the small KMAX; k is rounded up to the next instantiated KMAX
 // and the first k entries are written.
 //
+// k > 64 takes ceil(k / 64) launches of the KMAX = 64 kernel, one a pass of
+// 64 columns. Pass p admits only the refs that come after the last entry of
+// pass p - 1 in (d2, ref index) order: that entry's d2 is recomputed from its
+// ref index by the same expression (the same bits), and a ref is admitted if
+// its d2 is larger, or equal with a larger index. A query whose previous pass
+// ended short has nothing left and writes padding. Each pass re-reads the
+// refs, so the time grows with ceil(k / 64).
+//
 // What bounds it on the H100: operations. n * m distance evaluations of
 // about 8 f32 operations each (10,681 x 11,418 at the LUAD window: ~1 GFLOP)
 // against ~1 MB of coordinates in and lists out. Nothing but the lists ever
@@ -40,7 +48,8 @@ __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); 
 template <int KMAX>
 __global__ void radius_knn_kernel(const float* __restrict__ q_xy,
                                   const float* __restrict__ r_xy, int n, int m,
-                                  float r2, int k, int* __restrict__ out_idx,
+                                  float r2, int k, int col0,
+                                  int* __restrict__ out_idx,
                                   float* __restrict__ out_dist,
                                   uint8_t* __restrict__ out_mask) {
   __shared__ float sx[kTile];
@@ -60,6 +69,21 @@ __global__ void radius_knn_kernel(const float* __restrict__ q_xy,
     bd[j] = pos_inf();
     bi[j] = -1;
   }
+  // Pass col0 / KMAX > 0: the last entry the previous pass wrote.
+  int lo_i = -1;
+  float lo_d = 0.0f;
+  bool more = true;
+  if (col0 > 0 && live) {
+    lo_i = out_idx[static_cast<size_t>(q) * k + col0 - 1];
+    more = lo_i >= 0;
+    if (more) {
+      float rx = r_xy[2 * lo_i];
+      float ry = r_xy[2 * lo_i + 1];
+      float rsq = __fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry));
+      float inner = __fadd_rn(__fmul_rn(qx, rx), __fmul_rn(qy, ry));
+      lo_d = fmaxf(__fsub_rn(__fadd_rn(qsq, rsq), __fmul_rn(2.0f, inner)), 0.0f);
+    }
+  }
 
   for (int base = 0; base < m; base += kTile) {
     const int len = min(kTile, m - base);
@@ -72,13 +96,14 @@ __global__ void radius_knn_kernel(const float* __restrict__ q_xy,
       ss[t] = __fadd_rn(__fmul_rn(rx, rx), __fmul_rn(ry, ry));
     }
     __syncthreads();
-    if (!live) continue;
+    if (!live || !more) continue;
     for (int t = 0; t < len; ++t) {
       float inner = __fadd_rn(__fmul_rn(qx, sx[t]), __fmul_rn(qy, sy[t]));
       float d2 = __fsub_rn(__fadd_rn(qsq, ss[t]), __fmul_rn(2.0f, inner));
       d2 = fmaxf(d2, 0.0f);
-      if (d2 <= r2 && d2 < bd[KMAX - 1]) {
-        const int r = base + t;
+      const int r = base + t;
+      const bool after = lo_i < 0 || d2 > lo_d || (d2 == lo_d && r > lo_i);
+      if (d2 <= r2 && d2 < bd[KMAX - 1] && after) {
         // Sorted insertion from the top down: entries above the insertion
         // point move up one, the candidate lands behind every entry whose
         // distance is not larger (strict <).
@@ -103,9 +128,9 @@ __global__ void radius_knn_kernel(const float* __restrict__ q_xy,
   if (!live) return;
 #pragma unroll
   for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
+    if (col0 + j < k) {
       const bool ok = bi[j] >= 0;
-      const size_t o = static_cast<size_t>(q) * k + j;
+      const size_t o = static_cast<size_t>(q) * k + col0 + j;
       out_idx[o] = ok ? bi[j] : -1;
       out_dist[o] = ok ? __fsqrt_rn(bd[j]) : pos_inf();
       out_mask[o] = ok;
@@ -114,37 +139,42 @@ __global__ void radius_knn_kernel(const float* __restrict__ q_xy,
 }
 
 template <int KMAX>
-void launch(const float* q_xy, const float* r_xy, int n, int m, float r2, int k,
-            int* idx, float* dist, uint8_t* mask, cudaStream_t st) {
+int launch(const float* q_xy, const float* r_xy, int n, int m, float r2, int k,
+           int col0, int* idx, float* dist, uint8_t* mask, cudaStream_t st) {
   int grid = (n + kThreads - 1) / kThreads;
   radius_knn_kernel<KMAX><<<grid, kThreads, 0, st>>>(q_xy, r_xy, n, m, r2, k,
-                                                     idx, dist, mask);
+                                                     col0, idx, dist, mask);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The largest k the kernel holds; the wrapper refuses a larger one.
-extern "C" int same_radius_knn_max_k() { return 64; }
-
+// *launches gets the number of kernel launches: 1 for k <= 64, else one a
+// pass of 64 columns.
 extern "C" int same_radius_knn(const float* q_xy, const float* r_xy, int n,
                                int m, float r2, int k, int* idx, float* dist,
-                               uint8_t* mask, void* stream) {
+                               uint8_t* mask, void* stream, int* launches) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k < 1 || k > same_radius_knn_max_k()) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  *launches = 0;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int err = 0;
   if (k <= 4) {
-    launch<4>(q_xy, r_xy, n, m, r2, k, idx, dist, mask, st);
+    err = launch<4>(q_xy, r_xy, n, m, r2, k, 0, idx, dist, mask, st);
   } else if (k <= 8) {
-    launch<8>(q_xy, r_xy, n, m, r2, k, idx, dist, mask, st);
+    err = launch<8>(q_xy, r_xy, n, m, r2, k, 0, idx, dist, mask, st);
   } else if (k <= 16) {
-    launch<16>(q_xy, r_xy, n, m, r2, k, idx, dist, mask, st);
+    err = launch<16>(q_xy, r_xy, n, m, r2, k, 0, idx, dist, mask, st);
   } else if (k <= 32) {
-    launch<32>(q_xy, r_xy, n, m, r2, k, idx, dist, mask, st);
+    err = launch<32>(q_xy, r_xy, n, m, r2, k, 0, idx, dist, mask, st);
   } else {
-    launch<64>(q_xy, r_xy, n, m, r2, k, idx, dist, mask, st);
+    for (int col0 = 0; col0 < k && err == 0; col0 += 64) {
+      err = launch<64>(q_xy, r_xy, n, m, r2, k, col0, idx, dist, mask, st);
+      ++*launches;
+    }
+    return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  if (err == 0) *launches = 1;
+  return err;
 }
 
 extern "C" const char* same_cuda_error_string(int err) {

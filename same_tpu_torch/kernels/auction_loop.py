@@ -1,8 +1,10 @@
 """``auction_loop``: one whole auction solve, as one persistent kernel.
 
 ``auction_loop`` launches ``csrc/auction_loop.cu`` once per solve for CUDA
-tensors: every epsilon phase, polish repeat, boundary step and the final
-placement run on the card, and the host reads one small stats tensor at the
+tensors: one thread-block cluster (``cluster_shape()``: 16 blocks of 1,024
+threads on neighbouring SMs, synchronised by the cluster's hardware barrier)
+runs every epsilon phase, polish repeat, boundary step and the final
+placement on the card, and the host reads one small stats tensor at the
 end. For CPU tensors it runs ``auction_loop_plain``, the port of
 ``same_tpu/solver/auction.py::_auction_run`` as a Python loop over bidding
 rounds (the bidding round is K1's plain version, the boundary step with its
@@ -12,7 +14,8 @@ one host read per round feeds :func:`_control_step`). Both return an
 
 ``auction_loop_batch`` (kernel K5) solves a batch of same-shape windows
 stacked on a leading axis, the JAX package's vmapped ``_auction_run``: one
-cooperative launch for the batch, each window on its own range of blocks,
+ordinary launch of one cluster a window (no cooperative launch: clusters
+share no barrier, and those the card cannot hold at once wait their turn),
 bit-equal window by window to ``auction_loop`` on the same inputs. Its plain
 version, ``auction_loop_batch_plain``, loops ``auction_loop_plain`` over the
 windows.
@@ -326,8 +329,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_auction_loop_workspace.restype = ctypes.c_longlong
         lib.same_auction_loop_workspace.argtypes = [i, i, ctypes.POINTER(i)]
-        lib.same_auction_loop_batch_capacity.restype = i
-        lib.same_auction_loop_batch_capacity.argtypes = [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.same_auction_loop_clusters.restype = i
+        lib.same_auction_loop_clusters.argtypes = [ctypes.POINTER(i)] * 3
         lib.same_auction_loop_batch.restype = i
         lib.same_auction_loop_batch.argtypes = [
             p, p, p, p, p, p, i,  # costs .. slot_cols, Ps
@@ -343,7 +346,7 @@ def _lib():
             p, p, p, p, p, p, i,  # costs .. slot_cols, Ps
             p, i, p, p, p,  # eps_sched, P, prices0, assigned0, owner0
             i, i, i, i, i, i, ctypes.c_float,  # n, C, S, rounds, polish, patience, tol
-            p, p, p, p, p,  # choice, prices, owner, stats, trace
+            p, p, p, p, p, p,  # choice, prices, owner, stats, trace, phase_cycles
             p, ctypes.c_longlong, p,  # workspace, its bytes, stream
         ]
     return lib
@@ -357,14 +360,17 @@ def auction_loop(
     costs, slots, valid, nm_cost, prices0, eps_schedule, max_rounds,
     max_polish=64, assigned0=None, owner0=None,
     slot_rows=None, slot_cols=None,
-    obj_patience=None, obj_tol=None, obj_band=None, trace=None,
+    obj_patience=None, obj_tol=None, obj_band=None, trace=None, phase_cycles=None,
 ) -> AuctionResult:
     """One auction solve: the persistent kernel on CUDA tensors, the plain
     loop on CPU tensors. Arguments as :func:`auction_loop_plain`.
 
-    ``trace``, for diagnosis on the card only, is a float32 tensor of
-    ``[max_rounds, 2]`` that receives each round's (moved, cur_obj), the
-    inputs of the control step.
+    ``trace`` and ``phase_cycles`` are for diagnosis on the card only:
+    ``trace``, a float32 tensor of ``[max_rounds, 2]``, receives each
+    round's (moved, cur_obj), the inputs of the control step;
+    ``phase_cycles``, an int64 tensor of ``[5]``, the clock cycles the
+    cluster's first thread spent in the boundary steps, bids, resolves,
+    settles and control phases, each up to the exit from its barrier.
     """
     if costs.device.type == "cpu":
         return auction_loop_plain(
@@ -397,6 +403,8 @@ def auction_loop(
             spec.append((name, t, dtype, shape))
     if trace is not None:
         spec.append(("trace", trace, torch.float32, (int(max_rounds), 2)))
+    if phase_cycles is not None:
+        spec.append(("phase_cycles", phase_cycles, torch.int64, (5,)))
     _build.check_tensors("auction_loop", dev, spec)
     if (slot_rows is None) != (slot_cols is None):
         raise ValueError("auction_loop: slot_rows and slot_cols go together")
@@ -404,7 +412,7 @@ def auction_loop(
     lib = _lib()
     err = ctypes.c_int(0)
     ws_bytes = lib.same_auction_loop_workspace(n, S, ctypes.byref(err))
-    _build.check(lib, err.value, "auction_loop (grid query)")
+    _build.check(lib, err.value, "auction_loop (cluster query)")
     choice = torch.empty(n, dtype=torch.int32, device=dev)
     prices = torch.empty(S + 1, dtype=torch.float32, device=dev)
     owner = torch.empty(S + 1, dtype=torch.int32, device=dev)
@@ -418,14 +426,14 @@ def auction_loop(
         n, C, S, int(max_rounds), int(max_polish), int(obj_patience or 0),
         float(np.float32(0.0 if obj_tol is None else obj_tol)),
         choice.data_ptr(), prices.data_ptr(), owner.data_ptr(), stats.data_ptr(),
-        _ptr(trace), workspace.data_ptr(), ws_bytes,
+        _ptr(trace), _ptr(phase_cycles), workspace.data_ptr(), ws_bytes,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "auction_loop")
     st = stats.cpu().tolist()  # the one host read of the solve
     _build.count_launch(auction_loop, last_stats={
         "rounds": st[0], "boundary_rounds": st[3],
-        "active_bidder_rounds": st[4], "grid": st[5], "unplaced_at_exit": st[6],
+        "active_bidder_rounds": st[4], "cluster_blocks": st[5], "unplaced_at_exit": st[6],
         "resolved_slot_rounds": st[7], "released_rows_read": st[8],
     })
     return AuctionResult(
@@ -489,16 +497,17 @@ def auction_loop_batch_plain(
     return AuctionBatchResult(choice, prices, owner, *stats)
 
 
-def batch_capacity(n, S, device):
-    """(windows of size (n, S) one K5 launch holds, blocks per window) on the
-    CUDA ``device``."""
+def cluster_shape(device):
+    """(blocks, threads a block, clusters the card holds at once) of the
+    solve's cluster on the CUDA ``device``; raises when the card cannot hold
+    one."""
     with torch.cuda.device(device):
         lib = _lib()
-        err, grid = ctypes.c_int(0), ctypes.c_int(0)
-        per_launch = lib.same_auction_loop_batch_capacity(
-            n, S, ctypes.byref(grid), ctypes.byref(err))
-        _build.check(lib, err.value, "auction_loop_batch (grid query)")
-    return per_launch, grid.value
+        blocks, threads, err = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        held = lib.same_auction_loop_clusters(
+            ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(err))
+        _build.check(lib, err.value, "auction_loop (cluster query)")
+    return blocks.value, threads.value, held
 
 
 def auction_loop_batch(
@@ -514,9 +523,8 @@ def auction_loop_batch(
     (every window cold). ``eps_schedules`` is a host [B, P] array;
     ``max_rounds``, ``obj_patience`` and ``obj_tol`` are scalars or one value
     per window. ``windows`` lists the batch indices to solve (None: all).
-    CUDA tensors launch the kernel (several launches of whole windows when
-    the batch's blocks cannot all be co-resident), CPU tensors take
-    :func:`auction_loop_batch_plain`.
+    CUDA tensors launch the kernel once (one cluster a listed window), CPU
+    tensors take :func:`auction_loop_batch_plain`.
     """
     kw = dict(max_polish=max_polish, assigned0=assigned0, owner0=owner0,
               slot_rows=slot_rows, slot_cols=slot_cols,
@@ -576,7 +584,7 @@ def auction_loop_batch(
         lib = _lib()
         err = ctypes.c_int(0)
         ws_bytes = lib.same_auction_loop_workspace(n, S, ctypes.byref(err))
-        _build.check(lib, err.value, "auction_loop_batch (grid query)")
+        _build.check(lib, err.value, "auction_loop_batch (cluster query)")
         choice = torch.empty((B, n), dtype=torch.int32, device=dev)
         prices = torch.empty((B, S + 1), dtype=torch.float32, device=dev)
         owner = torch.empty((B, S + 1), dtype=torch.int32, device=dev)
@@ -598,7 +606,8 @@ def auction_loop_batch(
     _build.count_launch(auction_loop_batch, n=launches.value, last_stats={
         "launches": launches.value, "windows": int(listed.size),
         "rounds": st[:, 0].tolist(), "boundary_rounds": st[:, 3].tolist(),
-        "active_bidder_rounds": st[:, 4].tolist(), "grid": int(st[listed, 5].max(initial=0)),
+        "active_bidder_rounds": st[:, 4].tolist(),
+        "cluster_blocks": int(st[listed, 5].max(initial=0)),
         "unplaced_at_exit": st[:, 6].tolist(), "resolved_slot_rounds": st[:, 7].tolist(),
         "released_rows_read": st[:, 8].tolist(),
     })

@@ -14,6 +14,10 @@ at 0 and test it against ``float32(radius)**2``, so on one device they agree
 bit for bit. Far from the origin the expansion differs from the exact
 distance in its last bits (at coordinates near 13,000 by some units^2), and
 membership at the radius' edge follows the expansion, as it does in XLA.
+
+The kernel keeps each query's best 64 in registers; a larger k takes
+ceil(k / 64) launches, each pass filling the next 64 columns with the refs
+that follow the previous pass's last one in (distance, ref index) order.
 """
 
 from __future__ import annotations
@@ -56,7 +60,11 @@ def radius_knn_plain(query_xy, ref_xy, radius: float, k: int, tile: int = 1024):
         valid = torch.isfinite(key[:, :kk])
         sl = slice(s, s + tile)
         idx[sl, :kk] = torch.where(valid, order[:, :kk].to(torch.int32), -1)
-        dist[sl, :kk] = torch.where(valid, torch.sqrt(key[:, :kk]), INF)
+        # The square root in float64, rounded once to f32: the correctly
+        # rounded f32 root (XLA's, numpy's and K3's sqrtf). torch's f32 CPU
+        # sqrt can be one ulp off it (37.0 -> 6.0827622).
+        root = torch.sqrt(key[:, :kk].double()).float()
+        dist[sl, :kk] = torch.where(valid, root, INF)
         mask[sl, :kk] = valid
     return idx, dist, mask
 
@@ -65,10 +73,9 @@ def _lib():
     lib = _build.load("radius_knn")
     if lib.same_radius_knn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.same_radius_knn_max_k.restype = i
-        lib.same_radius_knn_max_k.argtypes = []
         lib.same_radius_knn.restype = i
-        lib.same_radius_knn.argtypes = [p, p, i, i, ctypes.c_float, i, p, p, p, p]
+        lib.same_radius_knn.argtypes = [p, p, i, i, ctypes.c_float, i, p, p, p, p,
+                                        ctypes.POINTER(i)]
     return lib
 
 
@@ -89,24 +96,19 @@ def radius_knn(query_xy, ref_xy, radius: float, k: int):
         ("ref_xy", ref_xy, torch.float32, (m, 2)),
     ))
     lib = _lib()
-    max_k = lib.same_radius_knn_max_k()
-    if k > max_k:
-        raise ValueError(
-            f"radius_knn: k = {k} is more than the kernel's per-thread list "
-            f"holds ({max_k})"
-        )
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     dist = torch.empty((n, k), dtype=torch.float32, device=dev)
     mask = torch.empty((n, k), dtype=torch.bool, device=dev)
     if n == 0:
         return idx, dist, mask
+    launches = ctypes.c_int(0)
     rc = lib.same_radius_knn(
         query_xy.data_ptr(), ref_xy.data_ptr(), n, m, radius_sq(radius), k,
         idx.data_ptr(), dist.data_ptr(), mask.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(launches),
     )
     _build.check(lib, rc, "radius_knn")
-    _build.count_launch(radius_knn)
+    _build.count_launch(radius_knn, n=launches.value)
     return idx, dist, mask
 
 

@@ -315,6 +315,7 @@ def solve_with_tearing(
             np.ascontiguousarray(ref_coords, np.float32)
         ).to(device)
         extra_dev = torch.zeros((n_pad, C), dtype=torch.float32, device=device)
+        extra_host = np.zeros((n_pad, C), dtype=np.float32)
         prices = (
             torch.as_tensor(np.ascontiguousarray(prices0, problem.costs.dtype)).to(device)
             if prices0 is not None
@@ -490,18 +491,8 @@ def solve_with_tearing(
                 cuts_added += 1
             if added == 0:
                 break
-            # Duplicate (row, col) deltas accumulate in an unspecified order
-            # on a card; the surcharges are dp * integer weights, exact in f32.
-            extra_dev.index_put_(
-                (
-                    torch.as_tensor(delta_rows, dtype=torch.long, device=device),
-                    torch.as_tensor(delta_cols, dtype=torch.long, device=device),
-                ),
-                torch.as_tensor(
-                    np.asarray(delta_vals, np.float32), device=device
-                ),
-                accumulate=True,
-            )
+            add_in_list_order(extra_host, delta_rows, delta_cols, delta_vals)
+            extra_dev.copy_(torch.from_numpy(extra_host))
 
     extra_matchings = None
     if spec["thread"] is not None:
@@ -537,6 +528,20 @@ def solve_with_tearing(
     if "error" in spec:
         res.info["speculative_repair_error"] = spec["error"]
     return res
+
+
+def add_in_list_order(extra, rows, cols, vals):
+    """``extra[rows[i], cols[i]] += vals[i]`` in f32, one delta after the
+    other in list order, as the JAX host loop adds
+    (same_tpu/solver/tearing.py:623-630, ``np.add.at``).
+
+    A vertex that is the cheapest to move of two cut triangles gets two
+    deltas on the same cells in one round; at a non-dyadic dp (0.1) their
+    f32 sum depends on the order, which an accumulating scatter on a card
+    does not promise.
+    """
+    np.add.at(extra, (np.asarray(rows, np.int64), np.asarray(cols, np.int64)),
+              np.asarray(vals, extra.dtype))
 
 
 def incumbents_from_device_data(problem, T, data, verbose=False):

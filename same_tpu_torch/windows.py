@@ -23,9 +23,9 @@ ported yet and raises ``NotImplementedError``.
 
 Windows in flight: in the pipelined path up to ``tpu_pipeline_windows`` host
 threads run ``solve_prepared`` at once. All of them launch on the device's
-one default stream, so their kernels serialize there; ``auction_loop`` is a
-cooperative launch that takes every SM it can, and two of them on two
-streams could not be promised co-residency. Each solve allocates its own
+one default stream, so their kernels serialize there (an ``auction_loop``
+solve is one thread-block cluster; the batched path, ``mesh=``, is the one
+that runs several windows' clusters at once). Each solve allocates its own
 workspace, and the kernels' launch counts are kept under a lock and per
 thread (``kernels/_build.py::count_launch``).
 """
