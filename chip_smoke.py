@@ -57,13 +57,19 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    - K7 ``tear_scalars`` at the LUAD window's round-0 state (its first
      auction solve and K2 at no surcharge): bit-equal to its plain version,
      the counts exact and the three float sums within 1e-6 relative of a
-     float64 sum, the stop decisions of both identical; K8
+     float64 sum, the stop decisions of both identical; and with the refs
+     spread over more than its shared bitmap holds, on a global bitmap. K8
      ``register_cuts`` on the same state, twice (the second round finds its
-     cuts in memory), and on three synthetic windows with dp = 0.1
-     surcharges on duplicate (vertex, column) targets, a column block
-     clamped at C - 1, full dedup memories, and the per-round and total caps
-     binding: ``cut_mem``, ``cut_cnt``, ``extra`` and the cuts added
-     bit-equal to the plain version;
+     cuts in memory), with the hard surcharge (1e7) and with the per-round
+     cap free; on three synthetic windows with dp = 0.1 surcharges on
+     duplicate (vertex, column) targets, a column block clamped at C - 1,
+     full dedup memories, a window that does not register, and the
+     per-round and total caps binding; on two windows with more than 32
+     cuts on one vertex; and on two windows whose cuts outnumber its shared
+     list (39,768 triangles: a global list, two sweeps of the triangles):
+     ``cut_mem``, ``cut_cnt``, ``extra`` and the cuts added bit-equal to
+     the plain version. Each kernel's time alone (torch.profiler, median of
+     20 launches) and its wrapper call's (CUDA events, median);
    - K9 ``bid_compute`` at [12288, 8] and [12288, 24] on the
      microbenchmark's instance: bit-equal to its plain version;
    - K10 ``sinkhorn_dense`` through ``same_tpu_torch.ops.sinkhorn`` (no
@@ -157,7 +163,9 @@ the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
-phases 4 and 6.
+phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K7 and K8
+were checked on (the LUAD window's round 0, phase 6's stack) to FILE for
+``tear_round_bench.py``.
 """
 
 from __future__ import annotations
@@ -1002,6 +1010,16 @@ def phase2_loop(pw, device, smi_line):
 # Phase 2, continued: the rest of a tear round (K7, K8), K9 and K10
 # ----------------------------------------------------------------------------
 
+# The inputs of K7 and K8 at the LUAD window's round 0 and on phase 6's
+# stack, kept for --save-tear-states (tear_round_bench.py times them).
+# Filled by phase2_tear_round and batch_tear_round.
+TEAR_STATES = {}
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def timed_reset(reset, fn, reps=30, warmup=2):
     """Median CUDA-event time of fn() in ms, each call after reset(), whose
     work is enqueued before the start event and so not timed."""
@@ -1019,6 +1037,33 @@ def timed_reset(reset, fn, reps=30, warmup=2):
         if i >= warmup:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(fn, name, reset=None, reps=20, tries=3):
+    """Median device duration in ms of the launches of the kernel whose name
+    holds ``name``, over ``reps`` calls of fn() (each after reset()) under
+    torch.profiler; a trace that holds no such launch is taken again, up to
+    ``tries`` traces, and then None."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        if reset is not None:
+            reset()
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if reset is not None:
+                    reset()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if name in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return statistics.median(us) / 1e3
+    return None
 
 
 def scalars_f64(costs, nm, choice, cand_ref, m, flipped, checked, tw, tri_mask, src):
@@ -1109,13 +1154,14 @@ def run_cuts_twice(tag, args, state, register, cuts_added, **kw):
 
 def phase2_tear_round(pw, res, device, smi_line):
     """K7 and K8 at the LUAD window's round-0 state against their plain
-    versions, and K8 on synthetic windows that exercise its corners."""
+    versions, and on synthetic windows that exercise their corners and the
+    global-memory paths above their shared-memory capacities."""
     import torch
 
     from same_tpu_torch.kernels.tear_metrics import tear_metrics
     from same_tpu_torch.kernels.tear_round import (
-        register_cuts, register_cuts_plain, synthetic_round_state, tear_scalars,
-        tear_scalars_plain,
+        register_cuts, register_cuts_plain, shared_capacity, synthetic_round_state,
+        tear_scalars, tear_scalars_plain,
     )
     from same_tpu_torch.models.assignment import to_device
     from same_tpu_torch.solver.tearing_device import _cut_surcharge, _knobs, _score_and_stop
@@ -1124,6 +1170,7 @@ def phase2_tear_round(pw, res, device, smi_line):
     pd = to_device(prob, device)
     n, C = prob.costs.shape
     T, K, L = len(pw.tris), 6, int(prob.n_slot_copies)
+    cap_words, cap_cuts = shared_capacity()
 
     def up(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
@@ -1143,8 +1190,10 @@ def phase2_tear_round(pw, res, device, smi_line):
     plain = tear_scalars_plain(*k7_args)
     torch.cuda.synchronize()
     require_equal("K7 LUAD round 0", got, plain)
+    require(tear_scalars.bitmap == "shared", f"K7 LUAD: a {tear_scalars.bitmap} bitmap")
     host = [t.cpu().numpy() for t in (pd.costs, pd.nm_cost, res.choice, pd.cand_ref)]
-    want = scalars_f64(*host, m, *(t.cpu().numpy() for t in (flipped, checked, tw, tri_mask, src)))
+    tri_host = [t.cpu().numpy() for t in (flipped, checked, tw, tri_mask, src)]
+    want = scalars_f64(*host, m, *tri_host)
     rel = check_scalars("LUAD round 0", got[0].cpu().numpy(), want)
     kn = _knobs(OPTIM["delaunay_penalty"], SOLVER["lazy_allowed_flip_fraction"],
                 OPTIM["penalty_coeff"], False, 6, SOLVER["tpu_tear_plateau_tol"], n,
@@ -1154,15 +1203,36 @@ def phase2_tear_round(pw, res, device, smi_line):
     require(decide[0] == decide[1], f"K7: stop decisions {decide[0]} vs plain {decide[1]}")
     k7_err = float((got.double() - torch.as_tensor(want, device=device)).abs().max())
     t7 = median_ms(lambda: tear_scalars(*k7_args))
+    k7_alone = kernel_ms(lambda: tear_scalars(*k7_args), "tear_scalars")
     t7_p = median_ms(lambda: tear_scalars_plain(*k7_args), reps=10, warmup=1)
-    n7 = k7_bytes(res.choice.cpu().numpy(), C,
-                  *(t.cpu().numpy() for t in (flipped, tri_mask, src)))
+    n7 = k7_bytes(res.choice.cpu().numpy(), C, *(tri_host[i] for i in (0, 3, 4)))
     b7 = bound_ms(n7)
     log(f"[phase 2] K7 LUAD round 0: [n, C] = [{n}, {C}], m = {m}, T = {T}; bit-equal to "
         f"the plain version, counts exact, sums within {rel:.3g} of float64 (max abs "
         f"{k7_err:.4g}), stop decision {decide[0][3]} both; values {got[0].tolist()}; "
-        f"kernel {t7:.4f} ms (median of 60), plain {t7_p:.3f} ms (median of 10); bound "
+        f"kernel alone {fmt_ms(k7_alone)} (median of 20 launches, torch.profiler), wrapper "
+        f"call {t7:.4f} ms (median of 60), plain {t7_p:.3f} ms (median of 10); bound "
         f"{n7 / 1e6:.4f} MB = {b7 * 1e3:.4f} us; {smi_line}")
+
+    # K7 on a global bitmap: the same rows with their refs spread over more
+    # refs than the shared bitmap holds.
+    m_big = 32 * cap_words + 4000
+    spread = m_big // m
+    big_ref = (pd.cand_ref * spread).contiguous()
+    k7_big = (k7_args[0], k7_args[1], k7_args[2], big_ref[None],
+              torch.zeros((1, m_big, 2), dtype=torch.float32, device=device),
+              torch.tensor([m_big], dtype=torch.int32, device=device), *k7_args[6:])
+    got_big = tear_scalars(*k7_big)
+    plain_big = tear_scalars_plain(*k7_big)
+    torch.cuda.synchronize()
+    require(tear_scalars.bitmap == "global", f"K7, m = {m_big}: a {tear_scalars.bitmap} bitmap")
+    require_equal(f"K7 m = {m_big} (global bitmap)", got_big, plain_big)
+    want_big = scalars_f64(host[0], host[1], host[2], big_ref.cpu().numpy(), m_big, *tri_host)
+    check_scalars(f"m = {m_big}", got_big[0].cpu().numpy(), want_big)
+    t7_big = kernel_ms(lambda: tear_scalars(*k7_big), "tear_scalars")
+    log(f"[phase 2] K7 on a global bitmap: the LUAD rows with refs x {spread} over m = "
+        f"{m_big} ({-(-m_big // 32)} words, the shared bitmap holds {cap_words}): bit-equal "
+        f"to the plain version, counts exact; kernel alone {fmt_ms(t7_big)}; {smi_line}")
 
     surcharge = _cut_surcharge(tw, kn)
     args = (tris[None], surcharge[None], res.choice[None], pd.pair_idx[None], flipped[None],
@@ -1173,11 +1243,14 @@ def phase2_tear_round(pw, res, device, smi_line):
              torch.zeros((1, n, C), dtype=torch.float32, device=device))
     one, zero = np.ones(1, bool), np.zeros(1, np.int64)
     added, _, k8_err = run_cuts_twice("LUAD round 0", args, state, one, zero, **kw)
+    require(register_cuts.cut_list == "shared", f"K8 LUAD: a {register_cuts.cut_list} list")
     # The second round from the first's end state adds only the triangles
     # the per-round cap held back.
     first, second = added[0][0], added[1][0]
     cap = kw["max_cuts_per_round"]
     require(0 < first <= cap and (first == cap or second == 0), f"K8 LUAD: cuts added {added}")
+    TEAR_STATES["luad_round0"] = dict(k7_args=k7_args, k8_args=args, k8_state=state,
+                                      register=one, cuts_added=zero, kw=kw)
     work = [t.clone() for t in state]
 
     def reset():
@@ -1185,65 +1258,105 @@ def phase2_tear_round(pw, res, device, smi_line):
             w_.copy_(s_)
 
     t8 = timed_reset(reset, lambda: register_cuts(*args, one, zero, *work, **kw))
+    k8_alone = kernel_ms(lambda: register_cuts(*args, one, zero, *work, **kw), "register_cuts",
+                         reset)
     t8_p = timed_reset(reset, lambda: register_cuts_plain(*args, one, zero, *work, **kw),
                        reps=5, warmup=1)
-    # After timed_reset, work holds the state one launch left from state.
-    n8 = k8_bytes(np.asarray(pw.tris), flipped.cpu().numpy(), state[1][0].cpu().numpy(),
+    # After the resets, work holds the state one launch left from state.
+    n8 = k8_bytes(np.asarray(pw.tris), tri_host[0], state[1][0].cpu().numpy(),
                   work[1][0].cpu().numpy(), res.choice.cpu().numpy(), C,
                   vmove.cpu().numpy(), L)
     b8 = bound_ms(n8)
     log(f"[phase 2] K8 LUAD round 0: L = {L}, K = {K}, {int(flipped.sum())} flipped, "
         f"{added[0][0]} cuts (cap {kw['max_cuts_per_round']} a round), then {added[1][0]} "
         f"from the first's end state; cut_mem, cut_cnt, "
-        f"extra, added bit-equal to the plain version in both rounds; kernel {t8:.4f} ms "
+        f"extra, added bit-equal to the plain version in both rounds; kernel alone "
+        f"{fmt_ms(k8_alone)} (median of 20 launches, torch.profiler), wrapper call {t8:.4f} ms "
         f"(median of 30), plain {t8_p:.3f} ms (median of 5); bound {n8 / 1e6:.4f} MB = "
         f"{b8 * 1e3:.4f} us; {smi_line}")
 
+    # The same state with the hard surcharge (1e7 a cut), and with the
+    # per-round cap free: every new cut kept, the list still in shared memory.
+    hard = _cut_surcharge(tw, kn._replace(hard=True))
+    added_h, _, err = run_cuts_twice("LUAD round 0, hard", (args[0], hard[None], *args[2:]),
+                                     state, one, zero, **kw)
+    k8_err = max(k8_err, err)
+    kw_free = dict(kw, max_cuts_per_round=2**31 - 1)
+    added_f, _, err = run_cuts_twice("LUAD round 0, caps free", args, state, one, zero, **kw_free)
+    require(register_cuts.cut_list == "shared", f"K8 caps free: a {register_cuts.cut_list} list")
+    require(added_f[0][0] > cap and added_f[1][0] == 0, f"K8 caps free: cuts added {added_f}")
+    k8_err = max(k8_err, err)
+    log(f"[phase 2] K8 LUAD round 0 with the hard surcharge {float(hard[0]):g}: cuts added "
+        f"{added_h[0]} then {added_h[1]}; with the per-round cap free: {added_f[0]} then "
+        f"{added_f[1]} ({T} triangles, the shared list holds {cap_cuts}); bit-equal to the "
+        f"plain version")
+
     # Synthetic windows: dp = 0.1 surcharges, about ten cuts a vertex, C = 7
     # with L = 3 (a block clamped at C - 1), full and matching memories; the
-    # caps free, then binding (per round in window 0, in total in window 1).
+    # caps free, then binding (per round in window 0, in total in window 1);
+    # a window that does not register; then segments of more than 32 cuts on
+    # a vertex, and a list beyond the shared capacity (two sweeps of the
+    # triangles) in global memory.
     rng = np.random.default_rng(5)
     keys = ("choice", "pair_idx", "tris", "surcharge", "flipped", "vmove", "cut_mem",
             "cut_cnt", "extra")
-    ws = [{k: w[k] for k in keys} for w in (synthetic_round_state(rng) for _ in range(3))]
-    for label, reg, done, caps in (
-        ("no cap", [True, True, False], [0, 5, 0], (1000, 1 << 30)),
-        ("both caps", [True, True, True], [0, 18, 3], (4, 20)),
+    small = [{k: w[k] for k in keys} for w in (synthetic_round_state(rng) for _ in range(3))]
+    long_seg = [{k: w[k] for k in keys}
+                for w in (synthetic_round_state(rng, T=1000, hot=5) for _ in range(2))]
+    t_big = 32 * 1024 + 7000
+    wide = [{k: w[k] for k in keys}
+            for w in (synthetic_round_state(rng, n=3000, T=t_big, hot=3000) for _ in range(2))]
+    for label, ws, reg, done, caps, path in (
+        ("[3, 40, 7], no cap", small, [True, True, False], [0, 5, 0], (1000, 1 << 30), "shared"),
+        ("[3, 40, 7], both caps", small, [True, True, True], [0, 18, 3], (4, 20), "shared"),
+        ("[2, 40, 7], T = 1000 on 5 vertices", long_seg, [True, True], [0, 0], (1000, 1 << 30),
+         "shared"),
+        (f"[2, 3000, 7], T = {t_big}, caps free", wide, [True, True], [0, 7],
+         (2**31 - 1, 1 << 40), "global"),
     ):
         st = {k: up(np.stack([w[k] for w in ws]), None) for k in ws[0]}
         s_args = (st["tris"], st["surcharge"], st["choice"], st["pair_idx"], st["flipped"],
                   st["vmove"])
         added, after, err = run_cuts_twice(
-            f"synthetic, {label}", s_args, (st["cut_mem"], st["cut_cnt"], st["extra"]),
+            f"synthetic {label}", s_args, (st["cut_mem"], st["cut_cnt"], st["extra"]),
             np.asarray(reg), np.asarray(done), L=3, K=2, max_cuts_per_round=caps[0],
             max_cuts_total=caps[1])
-        hits = cut_targets(ws, after[1].cpu().numpy(), L=3)
-        require(hits > 0, f"K8 synthetic, {label}: no (vertex, column) cell got two surcharges")
+        require(register_cuts.cut_list == path,
+                f"K8 synthetic {label}: a {register_cuts.cut_list} list, not {path}")
+        hits, longest = cut_targets(ws, after[1].cpu().numpy(), L=3)
+        require(hits > 0, f"K8 synthetic {label}: no (vertex, column) cell got two surcharges")
         k8_err = max(k8_err, err)
-        if label == "both caps":
+        if "both caps" in label:
             require(added[0] == [4, 2, 4], f"K8 synthetic: caps gave {added[0]}, not [4, 2, 4]")
-        log(f"[phase 2] K8 synthetic [3, 40, 7], {label}: cuts added {added[0]} then "
-            f"{added[1]}; {hits} (vertex, column) cells surcharged more than once; "
-            f"bit-equal to the plain version")
+        if "T = 1000" in label:
+            require(longest > 32, f"K8 synthetic {label}: at most {longest} cuts on a vertex")
+        log(f"[phase 2] K8 synthetic {label}: cuts added {added[0]} then {added[1]}; {hits} "
+            f"(vertex, column) cells surcharged more than once, up to {longest} cuts on one "
+            f"vertex; the list in {path} memory; bit-equal to the plain version")
     return {
-        "k7": {"err": k7_err, "ms": t7, "plain_ms": t7_p, "bound_ms": b7},
-        "k8": {"err": k8_err, "ms": t8, "plain_ms": t8_p, "bound_ms": b8},
+        "k7": {"err": k7_err, "ms": t7, "kernel_ms": k7_alone, "plain_ms": t7_p,
+               "bound_ms": b7, "kernel_ms_global_bitmap": t7_big},
+        "k8": {"err": k8_err, "ms": t8, "kernel_ms": k8_alone, "plain_ms": t8_p,
+               "bound_ms": b8},
     }
 
 
 def cut_targets(ws, cnt_after, L):
-    """(vertex, column) cells of the synthetic windows that got more than one
-    surcharge in the first round."""
+    """The (vertex, column) cells of the synthetic windows that got more
+    than one surcharge in the first round, and the most cuts on one vertex."""
     from same_tpu_torch.kernels.tear_round import surcharged_cells
 
-    hits = 0
+    hits = longest = 0
     for b, w in enumerate(ws):
         new = np.flatnonzero(cnt_after[b] != w["cut_cnt"])
         cells = surcharged_cells(w["tris"], w["vmove"], w["choice"], new,
                                  w["extra"].shape[1], L)
         _, counts = np.unique(cells, axis=0, return_counts=True)
         hits += int((counts > 1).sum())
-    return hits
+        if len(new):
+            moved = w["tris"][new, w["vmove"][new]]
+            longest = max(longest, int(np.bincount(moved).max()))
+    return hits, longest
 
 
 def phase2_bid_compute(device, smi_line):
@@ -2372,7 +2485,10 @@ def batch_tear_round(pws, k6_args, k6_out, choice, T_list, T_pad, device, smi_li
     reg, done = np.ones(B, bool), np.zeros(B, np.int64)
     kw = dict(L=L, K=K, max_cuts_per_round=1000, max_cuts_total=1 << 30)
     added, _, _ = run_cuts_twice("(g) stack", args, state, reg, done, **kw)
+    TEAR_STATES["stack"] = dict(k7_args=k7_args, k8_args=args, k8_state=state, register=reg,
+                                cuts_added=done, kw=kw)
     t7 = median_ms(lambda: tear_scalars(*k7_args))
+    k7_alone = kernel_ms(lambda: tear_scalars(*k7_args), "tear_scalars")
     work = [t.clone() for t in state]
 
     def reset():
@@ -2380,12 +2496,16 @@ def batch_tear_round(pws, k6_args, k6_out, choice, T_list, T_pad, device, smi_li
             w_.copy_(s_)
 
     t8 = timed_reset(reset, lambda: register_cuts(*args, reg, done, *work, **kw))
+    k8_alone = kernel_ms(lambda: register_cuts(*args, reg, done, *work, **kw), "register_cuts",
+                         reset)
     log(f"[phase 6] (g) K7 on {B} windows, T = {T_list} padded to {T_pad}: bit-equal to the "
         f"plain version, to each window alone and, on windows {sub.tolist()}, to the stack's "
         f"rows; K8: cuts added {added[0]}, then {added[1]}, "
-        f"bit-equal to the plain version; K7 {t7:.4f} ms, K8 {t8:.4f} ms (medians of 60 and "
-        f"30); {smi_line}")
-    return {"k7_batch": {"ms": t7}, "k8_batch": {"ms": t8}}
+        f"bit-equal to the plain version; K7 alone {fmt_ms(k7_alone)}, wrapper call "
+        f"{t7:.4f} ms; K8 alone {fmt_ms(k8_alone)}, wrapper call {t8:.4f} ms (kernel alone: "
+        f"median of 20 launches, torch.profiler; wrapper: medians of 60 and 30); {smi_line}")
+    return {"k7_batch": {"ms": t7, "kernel_ms": k7_alone},
+            "k8_batch": {"ms": t8, "kernel_ms": k8_alone}}
 
 
 # ----------------------------------------------------------------------------
@@ -2495,6 +2615,21 @@ def profile_solve(pw, device, out_dir):
     prof.export_chrome_trace(os.path.join(out_dir, "auction_200_rounds_trace.json"))
 
 
+def save_tear_states(path):
+    """Write TEAR_STATES (tensors moved to the host) to ``path``, if given."""
+    if not path:
+        return
+    import torch
+
+    def host(x):
+        return tuple(t.cpu() for t in x) if isinstance(x, tuple) else x
+
+    states = {name: {k: host(v) for k, v in st.items()} for name, st in TEAR_STATES.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(states, path)
+    log(f"[states] K7 and K8 inputs ({', '.join(states)}) saved to {path}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", type=int, default=LUAD_CELLS,
@@ -2509,6 +2644,9 @@ def main():
     ap.add_argument("--synthetic", action="store_true",
                     help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
                          "minutes more)")
+    ap.add_argument("--save-tear-states", metavar="FILE", default=None,
+                    help="save the inputs of K7 and K8 at the LUAD window's round 0 and "
+                         "on phase 6's stack to FILE, for tear_round_bench.py")
     args = ap.parse_args()
 
     import torch
@@ -2541,6 +2679,7 @@ def main():
         phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
         if args.synthetic:
             phase5()
+        save_tear_states(args.save_tear_states)
         print(smi_line)
         print(not_ok)
         return 2
@@ -2556,6 +2695,7 @@ def main():
     if args.profile:
         profile_solve(pw, device, args.profile)
     if args.no_slice:
+        save_tear_states(args.save_tear_states)
         print(smi_line)
         print(not_ok)
         return 2
@@ -2566,6 +2706,7 @@ def main():
     batched = phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
     if args.synthetic:
         phase5()
+    save_tear_states(args.save_tear_states)
     grid_launches = {label: run["launches"] for (label, _s, _d), run in zip(GRID_RUNS, grid)}
 
     a = loop["a"]
@@ -2671,8 +2812,10 @@ def main():
             "launches": summary["launches"]["tear_scalars"],
             "max_abs_err": k7["err"], "ms": k7["ms"], "plain_ms": k7["plain_ms"],
             "bound_ms": k7["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": k7["kernel_ms"], "kernel_ms_global_bitmap": k7["kernel_ms_global_bitmap"],
             "launches_in_mesh_grid": mesh_launches["tear_scalars"],
             "ms_mesh_batch": batched["k7_batch"]["ms"],
+            "kernel_ms_mesh_batch": batched["k7_batch"]["kernel_ms"],
         },
         {
             "name": "register_cuts", "route": "cuda",
@@ -2681,8 +2824,10 @@ def main():
             "launches": summary["launches"]["register_cuts"],
             "max_abs_err": k8["err"], "ms": k8["ms"], "plain_ms": k8["plain_ms"],
             "bound_ms": k8["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": k8["kernel_ms"],
             "launches_in_mesh_grid": mesh_launches["register_cuts"],
             "ms_mesh_batch": batched["k8_batch"]["ms"],
+            "kernel_ms_mesh_batch": batched["k8_batch"]["kernel_ms"],
         },
         {
             "name": "bid_compute", "route": "cuda",

@@ -18,18 +18,23 @@ Two orders are fixed, and kernel and plain version share them:
   non-dyadic ``dp`` two cuts on one (vertex, column) give an
   order-dependent f32 sum, which a scatter with atomics would leave to
   chance.
+
+Each kernel keeps its working set in shared memory up to a capacity (K7's
+bitmap of refs hit, K8's list of a round's cuts: :func:`shared_capacity`)
+and runs the same code on global scratch, allocated here, beyond it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from . import _build
 
-SUM_THREADS = 256
+SUM_PARTIALS = 256  # csrc/tear_round.cu: kSumChains
 
 
 def fixed_order_sum(x):
@@ -37,14 +42,14 @@ def fixed_order_sum(x):
     into partial ``i % 256`` in index order, then the partials in a halving
     tree. Returns [b]."""
     b, N = x.shape
-    k = -(-N // SUM_THREADS)
-    padded = x.new_zeros((b, k * SUM_THREADS))
+    k = -(-N // SUM_PARTIALS)
+    padded = x.new_zeros((b, k * SUM_PARTIALS))
     padded[:, :N] = x
-    parts = padded.view(b, k, SUM_THREADS)
-    acc = x.new_zeros((b, SUM_THREADS))
+    parts = padded.view(b, k, SUM_PARTIALS)
+    acc = x.new_zeros((b, SUM_PARTIALS))
     for i in range(k):
         acc = acc + parts[:, i]
-    s = SUM_THREADS // 2
+    s = SUM_PARTIALS // 2
     while s:
         acc = acc[:, :s] + acc[:, s:2 * s]
         s //= 2
@@ -90,9 +95,52 @@ def _lib():
         lib.same_tear_scalars.argtypes = [p] * 11 + [i] * 5 + [p] * 3
         lib.same_register_cuts.restype = i
         lib.same_register_cuts.argtypes = (
-            [p] * 7 + [i] * 7 + [ll] + [p] * 8
+            [p] * 7 + [i, ll] + [i] * 7 + [ll] + [p] * 5 + [i, p, p]
         )
+        for f in (lib.same_tear_scalars_shared_words, lib.same_register_cuts_shared_entries):
+            f.restype = i
+            f.argtypes = []
     return lib
+
+
+def shared_capacity():
+    """(K7's shared bitmap in 32-bit words, K8's shared list in cuts): the
+    sizes above which each kernel works on global scratch. Loads the
+    library (needs nvcc)."""
+    lib = _lib()
+    return lib.same_tear_scalars_shared_words(), lib.same_register_cuts_shared_entries()
+
+
+class _Upload:
+    """A small host array copied to a device through one pinned buffer that
+    is kept from call to call (one a device). A new fill first waits for
+    the event recorded after the previous copy out of the buffer, so a copy
+    still in flight is never overwritten."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots = {}  # device -> [pinned buffer, event after its last copy]
+
+    def __call__(self, arr, dev):
+        arr = np.ascontiguousarray(arr)
+        dtype = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}[arr.dtype]
+        with self._lock:
+            slot = self._slots.get(dev)
+            if slot is None:
+                slot = self._slots[dev] = [None, torch.cuda.Event()]
+            slot[1].synchronize()
+            if slot[0] is None or slot[0].numel() < arr.nbytes:
+                slot[0] = torch.empty(max(arr.nbytes, 512), dtype=torch.uint8, pin_memory=True)
+            host = slot[0][:arr.nbytes]
+            host.numpy()[:] = arr.reshape(-1).view(np.uint8)
+            out = torch.empty(arr.nbytes, dtype=torch.uint8, device=dev)
+            out.copy_(host, non_blocking=True)
+            slot[1].record(torch.cuda.current_stream(dev))
+        return out.view(dtype).view(arr.shape)
+
+
+_upload_windows = _Upload()  # K7's window list
+_upload_ctl = _Upload()  # K8's {register, cuts_added} of a batch
 
 
 def tear_scalars(costs, nm, choice, cand_ref, ref_xy, m_ref, flipped, checked,
@@ -138,27 +186,32 @@ def tear_scalars(costs, nm, choice, cand_ref, ref_xy, m_ref, flipped, checked,
         if sel.size and (sel.min() < 0 or sel.max() >= b):
             raise ValueError(f"tear_scalars: windows {sel} outside [0, {b})")
         nw = sel.size
-        win = torch.from_numpy(sel.astype(np.int32)).pin_memory().to(dev, non_blocking=True)
+        if nw:
+            win = _upload_windows(sel.astype(np.int32), dev)
     words = -(-int(ref_xy.shape[1]) // 32)
     out = torch.empty((nw, 6), dtype=torch.float32, device=dev)
     if nw == 0:
         return out
-    seen = torch.empty((nw, words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         lib = _lib()
+        # Beyond the shared bitmap each window gets a row of global scratch.
+        on_chip = words <= lib.same_tear_scalars_shared_words()
+        seen = None if on_chip else torch.empty((nw, words), dtype=torch.int32, device=dev)
         rc = lib.same_tear_scalars(
             costs.data_ptr(), nm.data_ptr(), choice.data_ptr(), cand_ref.data_ptr(),
             m_ref.data_ptr(), flipped.data_ptr(), checked.data_ptr(),
             tri_weights.data_ptr(), tri_mask.data_ptr(), src.data_ptr(),
-            None if win is None else win.data_ptr(), nw, n, C, T, words, seen.data_ptr(),
+            None if win is None else win.data_ptr(), nw, n, C, T, words,
+            None if seen is None else seen.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, rc, "tear_scalars")
-    _build.count_launch(tear_scalars)
+    _build.count_launch(tear_scalars, bitmap="shared" if on_chip else "global")
     return out
 
 
 tear_scalars.launches = 0
+tear_scalars.bitmap = None  # "shared" or "global": where the last launch kept it
 
 
 def register_cuts_plain(tris, surcharge, choice, pair_idx, flipped, vmove, register,
@@ -240,29 +293,41 @@ def register_cuts(tris, surcharge, choice, pair_idx, flipped, vmove, register,
     added = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0 or T == 0:
         return added.zero_()
-    ctl = np.stack([np.asarray(register, bool).astype(np.int64),
-                    np.asarray(cuts_added, np.int64)], axis=1)
-    ctl_d = torch.from_numpy(np.ascontiguousarray(ctl)).pin_memory().to(dev, non_blocking=True)
-    list_v = torch.empty((b, T), dtype=torch.int32, device=dev)
-    list_blk = torch.empty((b, T), dtype=torch.int32, device=dev)
-    list_val = torch.empty((b, T), dtype=torch.float32, device=dev)
+    register = np.asarray(register, bool).reshape(b)
+    cuts_added = np.asarray(cuts_added, np.int64).reshape(b)
+    ctl, reg0, done0 = None, 0, 0
+    if b == 1:  # the solo loop: two scalar arguments, no copy
+        reg0, done0 = int(register[0]), int(cuts_added[0])
+    else:
+        ctl = _upload_ctl(np.stack([register.astype(np.int64), cuts_added], axis=1), dev)
+    per_round = int(min(max_cuts_per_round, 2**31 - 1))
+    # The list holds the most cuts a window can keep, padded to a power of
+    # two for the sort.
+    key_cap = 1 << (max(min(per_round, T), 1) - 1).bit_length()
     max_total = min(int(max_cuts_total), 2**62)
     with torch.cuda.device(dev):
         lib = _lib()
+        on_chip = key_cap <= lib.same_register_cuts_shared_entries()
+        keys = vals = None
+        if not on_chip:
+            keys = torch.empty((b, key_cap), dtype=torch.int64, device=dev)
+            vals = torch.empty((b, key_cap), dtype=torch.float32, device=dev)
         rc = lib.same_register_cuts(
             tris.data_ptr(), surcharge.data_ptr(), choice.data_ptr(), pair_idx.data_ptr(),
-            flipped.data_ptr(), vmove.data_ptr(), ctl_d.data_ptr(), b, n, C, T, int(L),
-            int(K), int(min(max_cuts_per_round, 2**31 - 1)), max_total,
-            cut_mem.data_ptr(), cut_cnt.data_ptr(), extra.data_ptr(), list_v.data_ptr(),
-            list_blk.data_ptr(), list_val.data_ptr(), added.data_ptr(),
+            flipped.data_ptr(), vmove.data_ptr(), None if ctl is None else ctl.data_ptr(),
+            reg0, done0, b, n, C, T, int(L), int(K), per_round, max_total,
+            cut_mem.data_ptr(), cut_cnt.data_ptr(), extra.data_ptr(),
+            None if keys is None else keys.data_ptr(),
+            None if vals is None else vals.data_ptr(), key_cap, added.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, rc, "register_cuts")
-    _build.count_launch(register_cuts)
+    _build.count_launch(register_cuts, cut_list="shared" if on_chip else "global")
     return added
 
 
 register_cuts.launches = 0
+register_cuts.cut_list = None  # "shared" or "global": where the last launch kept it
 
 
 def synthetic_round_state(rng, n=40, C=7, T=60, K=2, dp=0.1, hot=12):
