@@ -36,7 +36,11 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      from the kernel's counters;
    - K1 at the Pallas microbenchmark's shape [12288, 8] and on the LUAD
      window, K2 on that window's triangles: integer outputs and prices
-     bit-equal; median times over 60 runs;
+     bit-equal; median times over 60 runs, and K2's two launches alone
+     (torch.profiler); K2 also on the LUAD rows with tied regrets (every
+     column of a row at one cost, zero prices: the first minimum decides)
+     and on a random window with C = 40 (two sweeps of a warp's lanes),
+     bit-equal;
    - K3 on the LUAD window's own coordinates (10,681 queries, 11,418 refs,
      k = 8, radius 250): ``idx`` and ``mask`` identical, ``dist`` bit-equal;
      and against the host cKDTree on the same input, within what the f32
@@ -48,7 +52,12 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    - K4 on the LUAD problem ([12288, 24], 100 iterations): ``g`` within 1e-4
      of its largest magnitude and the plan within 1e-5 (the design is
      bit-equal but for CUDA's exp and log, which may be compiled another way
-     into PyTorch; whether they came out bit-equal is printed);
+     into PyTorch; whether they came out bit-equal is printed), rows summing
+     to 1, padded rows to the sink; a call one launch of its kernel under
+     torch.profiler, its time alone beside the wrapper call's and
+     ``ref_entry_lists``' alone; the same held at [40000, 24] over 45,000
+     refs and eps 0.05 (more rows and refs than the cluster's threads, the
+     duals in global memory, the division);
    - one small window solved end to end on the card and on the CPU must
      give identical incumbents in both separation loops; and its host loop
      at dp = 0.1 with unequal triangle weights, where the order of the
@@ -144,7 +153,8 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    launch on more copies of the LUAD window than the card holds clusters
    at once, and on two copies of a window of 73,728 slots, five a thread
    of its one cluster, each copy against a solo launch, (d) K6 against one K2
-   launch a window and against its plain version, K7 and K8 on the same
+   call a window and against its plain version (its time alone and its
+   wrapper call's), K7 and K8 on the same
    stack against their plain versions and K7 against each window alone
    (unpadded), all bit-equal; (e) each
    batch of (f) against ``run_tearing_device`` window by window given the
@@ -163,9 +173,9 @@ the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
-phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K7 and K8
-were checked on (the LUAD window's round 0, phase 6's stack) to FILE for
-``tear_round_bench.py``.
+phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K2, K4, K6,
+K7 and K8 were checked on (the LUAD window's round 0 and problem, phase 6's
+stack) to FILE for ``tear_round_bench.py``.
 """
 
 from __future__ import annotations
@@ -442,7 +452,9 @@ def phase2_window(pw, device):
     """K1 and K2 on the LUAD window's own problem and triangles."""
     import torch
 
-    from same_tpu_torch.kernels.tear_metrics import tear_metrics, tear_metrics_plain
+    from same_tpu_torch.kernels.tear_metrics import (
+        row_regret_plain, tear_metrics, tear_metrics_plain,
+    )
     from same_tpu_torch.models.assignment import to_device
     from same_tpu_torch.solver.auction import solve_assignment
 
@@ -490,23 +502,74 @@ def phase2_window(pw, device):
         torch.as_tensor(np.ascontiguousarray(pw.ref_coords, np.float32)).to(device),
         res.prices, res.choice,
     )
-    out_k = tear_metrics(*args)
-    out_p = tear_metrics_plain(*args)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("checked", "flipped", "vmove"), out_k, out_p):
-        require_equal(f"K2 {name}", a, b)
-    k2_err = max(float((a.to(torch.int32) - b.to(torch.int32)).abs().max())
-                 for a, b in zip(out_k, out_p))
+    out_k, k2_err = compare_k2("LUAD window", args)
     t_k = median_ms(lambda: tear_metrics(*args))
+    k2_alone = kernel_stats(lambda: tear_metrics(*args), "tear_metrics")
     t_p = median_ms(lambda: tear_metrics_plain(*args))
     # Each input read once and each output written once.
     nbytes = tensor_bytes(*args, *out_k)
     b_ms = bound_ms(nbytes)
     log(f"[phase 2] K2 LUAD window: T = {T}, [n, C] = [{n}, {C}], "
         f"{int(out_k[0].sum())} checked, {int(out_k[1].sum())} flipped; bit-equal; "
-        f"kernel {t_k:.4f} ms, twin {t_p:.4f} ms (median of 60); "
-        f"bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us")
-    return k1, (k2_err, t_k, t_p, b_ms), res
+        f"kernel alone {fmt_stats(k2_alone)}, wrapper call {t_k:.4f} ms, twin {t_p:.4f} ms "
+        f"(median of 60); bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us")
+
+    # Tied regrets: every column of a row at the row's first cost, no
+    # surcharge, zero prices. A matched row with a valid column of another
+    # pair then has regret 0, so most triangles tie and the first minimum
+    # decides vmove.
+    zero_p = torch.zeros_like(res.prices)
+    tied = (pd.costs[:, :1].expand(-1, C).contiguous(), torch.zeros_like(extra), *args[2:11],
+            zero_p, res.choice)
+    compare_k2("LUAD rows, tied regrets", tied)
+    regret, _ = row_regret_plain(*tied[:7], zero_p, res.choice)
+    tri_reg = regret[args[7].long()]
+    ties = int(((tri_reg == tri_reg.min(1, keepdim=True).values).sum(1) > 1).sum())
+    require(ties > T // 4, f"K2 tied case: only {ties} of {T} triangles tie")
+    log(f"[phase 2] K2 on the LUAD rows with tied regrets: {ties} of {T} triangles hold "
+        f"their minimum regret at two or three vertices; bit-equal")
+
+    # A window wider than a warp: C = 40 columns, two sweeps of the lanes.
+    wide = k2_synthetic(np.random.default_rng(11), n=6000, C=40, T=12000, S=20000, m=9000)
+    wide = tuple(torch.as_tensor(a).to(device) for a in wide)
+    out_w, _ = compare_k2("C = 40", wide)
+    log(f"[phase 2] K2 at [n, C] = [6000, 40], T = 12000 (C > 32): {int(out_w[0].sum())} "
+        f"checked, {int(out_w[1].sum())} flipped; bit-equal")
+    return k1, (k2_err, t_k, t_p, b_ms, k2_alone), res
+
+
+def compare_k2(tag, args):
+    """K2 against its plain version on ``args``: the outputs bit-equal."""
+    import torch
+
+    from same_tpu_torch.kernels.tear_metrics import tear_metrics, tear_metrics_plain
+
+    out_k = tear_metrics(*args)
+    out_p = tear_metrics_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("checked", "flipped", "vmove"), out_k, out_p):
+        require_equal(f"K2 {tag} {name}", a, b)
+    err = max(float((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+              for a, b in zip(out_k, out_p))
+    return out_k, err
+
+
+def k2_synthetic(rng, n, C, T, S, m):
+    """K2's 13 inputs (numpy) for a random window: 80 % of the columns valid,
+    pairs of two columns, a fifth of the rows unmatched."""
+    valid = rng.random((n, C)) < 0.8
+    choice = np.where(rng.random(n) < 0.2, C, rng.integers(0, C, n)).astype(np.int32)
+    return (rng.uniform(0, 10, (n, C)).astype(np.float32),
+            np.where(rng.random((n, C)) < 0.05, 75.0, 0.0).astype(np.float32),
+            np.where(valid, rng.integers(0, S, (n, C)), S).astype(np.int32), valid,
+            rng.uniform(20, 30, n).astype(np.float32),
+            np.ascontiguousarray(np.repeat(rng.integers(0, 4 * n, (n, C // 2)), 2, axis=1),
+                                 dtype=np.int32),
+            rng.integers(0, m, (n, C)).astype(np.int32),
+            rng.integers(0, n, (T, 3)).astype(np.int32), rng.random(T) < 0.97,
+            rng.choice(np.array([-1, 0, 1], np.int32), T),
+            rng.uniform(0, 5000, (m, 2)).astype(np.float32),
+            rng.uniform(0, 5, S + 1).astype(np.float32), choice)
 
 
 def phase2_knn(mc_ref, mc_align, device, smi_line):
@@ -592,12 +655,58 @@ def phase2_knn(mc_ref, mc_align, device, smi_line):
             "rows_differing_from_ckdtree": rows, "ms_k65": t_k65}
 
 
+# The K4 kernels' names, this tree's and the parent's (two launches an
+# iteration: row_pass_kernel and ref_pass_kernel).
+K4_KERNELS = ("sinkhorn_sparse_kernel", "row_pass_kernel", "ref_pass_kernel")
+
+
+def check_k4(tag, args, kw, pad_from):
+    """K4 against its plain version on ``args``: g within 1e-4 of its largest
+    magnitude, the plan within 1e-5, rows summing to 1 within 1e-4, rows from
+    ``pad_from`` on (no valid candidate) all to the sink."""
+    import torch
+
+    from same_tpu_torch.kernels.sinkhorn_sparse import sinkhorn_sparse, sinkhorn_sparse_plain
+
+    plan_k, g_k = sinkhorn_sparse(*args, **kw)
+    plan_p, g_p = sinkhorn_sparse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(plan_k).all()),
+            f"K4 {tag}: the duals or the plan are not finite")
+    g_err = float((g_k - g_p).abs().max())
+    p_err = float((plan_k - plan_p).abs().max())
+    g_scale = max(1.0, float(g_p.abs().max()))
+    exact = first_diff(g_k, g_p) is None and first_diff(plan_k, plan_p) is None
+    require(g_err <= 1e-4 * g_scale, f"K4 {tag}: g off the plain version by {g_err} "
+            f"(allowed 1e-4 x {g_scale})")
+    require(p_err <= 1e-5, f"K4 {tag}: plan off the plain version by {p_err} (allowed 1e-5)")
+    row_err = float((plan_k.sum(1) - 1.0).abs().max())
+    require(row_err <= 1e-4, f"K4 {tag}: a plan row sums to 1 +- {row_err}")
+    K = args[0].shape[1]
+    require(bool((plan_k[pad_from:, K] == 1.0).all()),
+            f"K4 {tag}: a padded row sent mass elsewhere than to the sink")
+    return {"g_err": g_err, "p_err": p_err, "g_scale": g_scale, "bit_equal": exact,
+            "plan": plan_k, "g": g_k}
+
+
+def k4_synthetic(rng, n, K, n_ref, n_pad):
+    """K4's inputs (numpy) for n rows of K candidates near ref i * n_ref / n,
+    the last ``n_pad`` rows with no valid candidate."""
+    near = np.arange(n)[:, None] * n_ref // n + rng.integers(-60, 61, (n, K))
+    mask = rng.random((n, K)) < 0.85
+    mask[n - n_pad:] = False
+    return (rng.uniform(0, 5, (n, K)).astype(np.float32),
+            np.clip(near, 0, n_ref - 1).astype(np.int32), mask,
+            rng.uniform(4, 5, n).astype(np.float32))
+
+
 def phase2_sinkhorn(pw, device, smi_line):
-    """K4 on the LUAD window's problem against its plain version."""
+    """K4 on the LUAD window's problem, and on more rows and refs than its
+    cluster has threads, against its plain version."""
     import torch
 
     from same_tpu_torch.kernels.sinkhorn_sparse import (
-        sinkhorn_sparse, sinkhorn_sparse_plain,
+        ref_entry_lists, sinkhorn_sparse, sinkhorn_sparse_plain,
     )
 
     prob = pw.problem
@@ -611,42 +720,60 @@ def phase2_sinkhorn(pw, device, smi_line):
             up(np.clip(np.asarray(prob.cand_ref), 0, None), torch.int32),
             up(prob.valid, torch.bool), up(prob.nm_cost, torch.float32))
     kw = dict(n_ref=int(prob.n_ref), eps=1.0, n_iters=iters)
-    plan_k, g_k = sinkhorn_sparse(*args, **kw)
-    plan_p, g_p = sinkhorn_sparse_plain(*args, **kw)
-    torch.cuda.synchronize()
-    require(bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(plan_k).all()),
-            "K4: the duals or the plan are not finite")
-    g_err = float((g_k - g_p).abs().max())
-    p_err = float((plan_k - plan_p).abs().max())
-    g_scale = max(1.0, float(g_p.abs().max()))
-    exact = first_diff(g_k, g_p) is None and first_diff(plan_k, plan_p) is None
-    require(g_err <= 1e-4 * g_scale, f"K4: g off the plain version by {g_err} "
-            f"(allowed 1e-4 x {g_scale})")
-    require(p_err <= 1e-5, f"K4: plan off the plain version by {p_err} (allowed 1e-5)")
-    row_err = float((plan_k.sum(1) - 1.0).abs().max())
-    require(row_err <= 1e-4, f"K4: a plan row sums to 1 +- {row_err}")
-    require(bool((plan_k[prob.n_aligned:, K] == 1.0).all()),
-            "K4: a padded row sent mass elsewhere than to the sink")
+    TEAR_STATES["sinkhorn"] = dict(k4_args=args, k4_kw=kw)
+    res = check_k4("LUAD window", args, kw, prob.n_aligned)
+    require(sinkhorn_sparse.g_memory == "shared",
+            f"K4 LUAD: g in {sinkhorn_sparse.g_memory} memory, expected shared")
+    warps = sinkhorn_sparse.row_warps
     t_k = median_ms(lambda: sinkhorn_sparse(*args, **kw), reps=20, warmup=2)
+    alone = kernel_stats(lambda: sinkhorn_sparse(*args, **kw), K4_KERNELS, tries=5)
+    # One launch a call; a trace that lost device events shows fewer.
+    launches = None if alone is None else alone["launches"]
+    require(launches == 1 or (alone is not None and alone["ms"] is None and 0 < launches < 1),
+            f"K4: a call is {launches} launches of its kernel under torch.profiler, "
+            f"expected 1")
+    safe_ref = args[1].long()
+    t_lists = median_ms(
+        lambda: ref_entry_lists(safe_ref.clamp(0, kw["n_ref"] - 1), args[2], kw["n_ref"]),
+        reps=20, warmup=2)
     t_p = median_ms(lambda: sinkhorn_sparse_plain(*args, **kw), reps=2, warmup=0)
     entries = int(prob.valid.sum()) + n
-    nbytes = tensor_bytes(*args, plan_k, g_k)
+    nbytes = tensor_bytes(*args, res["plan"], res["g"])
     # Per entry and pass: the logit (2), the maximum (1), exp of the shifted
     # logit into the sum (3) and exp into the plan (2).
     flops = 8.0 * entries * (iters + 1)
     b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
     log(f"[phase 2] K4 LUAD window: [n, K] = [{n}, {K}], n_ref = {prob.n_ref}, "
-        f"{entries - n} valid candidates, {iters} iterations ({2 * iters + 1} launches a "
-        f"call); against the plain version: "
-        f"{'bit-equal' if exact else 'not bit-equal'}, max |g| gap {g_err:.3g} of "
-        f"{g_scale:.4g} (allowed 1e-4 of it), plan gap {p_err:.3g} (allowed 1e-5); "
-        f"kernel {t_k:.4f} ms (median of 20), plain {t_p:.2f} ms (median of 2); bound "
-        f"{flops / 1e9:.4f} GFLOP / 67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes "
-        f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.2f} us); {smi_line}")
-    return {"err": max(g_err, p_err), "ms": t_k, "plain_ms": t_p,
-            "bound_ms": max(b_bytes, b_ops),
+        f"{entries - n} valid candidates, {iters} iterations, g in shared memory, {warps} "
+        f"row-pass warps a block; against the plain version: "
+        f"{'bit-equal' if res['bit_equal'] else 'not bit-equal'}, max |g| gap "
+        f"{res['g_err']:.3g} of {res['g_scale']:.4g} (allowed 1e-4 of it), plan gap "
+        f"{res['p_err']:.3g} (allowed 1e-5); kernel alone {fmt_stats(alone)}; wrapper call "
+        f"{t_k:.4f} ms (median of 20), of which ref_entry_lists {t_lists:.4f} ms (median of "
+        f"20, alone); plain {t_p:.2f} ms (median of 2); bound {flops / 1e9:.4f} GFLOP / "
+        f"67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes {nbytes / 1e6:.3f} MB = "
+        f"{b_bytes * 1e3:.2f} us); {smi_line}")
+
+    # More rows and refs than the cluster's 16,384 threads, g past shared
+    # memory, eps not a power of two (the division).
+    big_n, big_ref = 40000, 45000
+    big = tuple(up(a, None) for a in k4_synthetic(np.random.default_rng(4), big_n, 24,
+                                                   big_ref, 500))
+    big_kw = dict(n_ref=big_ref, eps=0.05, n_iters=iters)
+    res_big = check_k4(f"[{big_n}, 24] over {big_ref} refs", big, big_kw, big_n - 500)
+    require(sinkhorn_sparse.g_memory == "global",
+            f"K4 big: g in {sinkhorn_sparse.g_memory} memory, expected global")
+    big_alone = kernel_ms(lambda: sinkhorn_sparse(*big, **big_kw), K4_KERNELS, reps=5)
+    log(f"[phase 2] K4 at [{big_n}, 24] over {big_ref} refs, eps 0.05, {iters} iterations "
+        f"(g in global memory, {sinkhorn_sparse.row_warps} row-pass warps a block): "
+        f"{'bit-equal' if res_big['bit_equal'] else 'not bit-equal'}, max |g| gap "
+        f"{res_big['g_err']:.3g} of {res_big['g_scale']:.4g}, plan gap {res_big['p_err']:.3g}; "
+        f"kernel alone {fmt_ms(big_alone)}")
+    return {"err": max(res["g_err"], res["p_err"], res_big["g_err"], res_big["p_err"]),
+            "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "bit_equal": exact}
+            "bit_equal": res["bit_equal"] and res_big["bit_equal"], "kernel": alone,
+            "ref_entry_lists_ms": t_lists, "kernel_ms_big": big_alone}
 
 
 def small_window_problem(seed=7):
@@ -1010,14 +1137,23 @@ def phase2_loop(pw, device, smi_line):
 # Phase 2, continued: the rest of a tear round (K7, K8), K9 and K10
 # ----------------------------------------------------------------------------
 
-# The inputs of K7 and K8 at the LUAD window's round 0 and on phase 6's
-# stack, kept for --save-tear-states (tear_round_bench.py times them).
-# Filled by phase2_tear_round and batch_tear_round.
+# The inputs of K2, K7 and K8 at the LUAD window's round 0, of K6, K7 and K8
+# on phase 6's stack and of K4 on the LUAD problem, kept for
+# --save-tear-states (tear_round_bench.py times them). Filled by
+# phase2_sinkhorn, phase2_tear_round and batch_tear_round.
 TEAR_STATES = {}
 
 
 def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def fmt_stats(st):
+    """kernel_stats' result: a call's device time and its launches."""
+    if st is None or st["ms"] is None:
+        return "not measured"
+    return (f"{st['ms']:.4f} ms a call in {st['launches']:g} launches (torch.profiler, "
+            f"median of 20 calls)")
 
 
 def timed_reset(reset, fn, reps=30, warmup=2):
@@ -1039,14 +1175,21 @@ def timed_reset(reset, fn, reps=30, warmup=2):
     return statistics.median(times)
 
 
-def kernel_ms(fn, name, reset=None, reps=20, tries=3):
-    """Median device duration in ms of the launches of the kernel whose name
-    holds ``name``, over ``reps`` calls of fn() (each after reset()) under
-    torch.profiler; a trace that holds no such launch is taken again, up to
-    ``tries`` traces, and then None."""
+def kernel_stats(fn, names, reset=None, reps=20, tries=3):
+    """Device time of the launches of the kernels whose names hold ``names``
+    (a string, or a tuple of strings), over ``reps`` calls of fn() (each
+    after reset()) under torch.profiler: ``{"ms": the median over calls of a
+    call's launches summed, "launch_ms": the median launch, "launches":
+    launches a call}``. A trace that holds no such launch, or whose launches
+    are not a whole number a call (a trace can lose device events), is taken
+    again, up to ``tries`` traces; then the last trace's launches give
+    ``launch_ms`` and ``launches`` with ``ms`` None, or the result is None
+    where no trace held a launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (names,) if isinstance(names, str) else tuple(names)
+    partial = None
     for _ in range(2):
         if reset is not None:
             reset()
@@ -1059,11 +1202,26 @@ def kernel_ms(fn, name, reset=None, reps=20, tries=3):
                     reset()
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if name in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
-        if us:
-            return statistics.median(us) / 1e3
-    return None
+        ev = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(n in e.name for n in names))
+        us = [d for _, d in ev]
+        if not us:
+            continue
+        if len(us) % reps:  # a trace that lost launches
+            partial = {"ms": None, "launch_ms": statistics.median(us) / 1e3,
+                       "launches": len(us) / reps}
+            continue
+        per_call = len(us) // reps  # consecutive launches, one call's group
+        calls = [sum(us[i:i + per_call]) for i in range(0, len(us), per_call)]
+        return {"ms": statistics.median(calls) / 1e3,
+                "launch_ms": statistics.median(us) / 1e3, "launches": len(us) / reps}
+    return partial
+
+
+def kernel_ms(fn, names, reset=None, reps=20, tries=3):
+    """The kernel alone: ``kernel_stats(...)["ms"]``, or None."""
+    return stat(kernel_stats(fn, names, reset, reps, tries), "ms")
 
 
 def scalars_f64(costs, nm, choice, cand_ref, m, flipped, checked, tw, tri_mask, src):
@@ -1180,9 +1338,9 @@ def phase2_tear_round(pw, res, device, smi_line):
     tri_mask = torch.ones(T, dtype=torch.bool, device=device)
     m = ref_xy.shape[0]
     # Round 0: the first auction solve, K2 at no surcharge.
-    checked, flipped, vmove = tear_metrics(
-        pd.costs, torch.zeros_like(pd.costs), pd.slots, pd.valid, pd.nm_cost, pd.pair_idx,
-        pd.cand_ref, tris, tri_mask, src, ref_xy, res.prices, res.choice)
+    k2_args = (pd.costs, torch.zeros_like(pd.costs), pd.slots, pd.valid, pd.nm_cost,
+               pd.pair_idx, pd.cand_ref, tris, tri_mask, src, ref_xy, res.prices, res.choice)
+    checked, flipped, vmove = tear_metrics(*k2_args)
     k7_args = (pd.costs[None], pd.nm_cost[None], res.choice[None], pd.cand_ref[None],
                ref_xy[None], torch.tensor([m], dtype=torch.int32, device=device),
                flipped[None], checked[None], tw[None], tri_mask[None], src[None])
@@ -1249,8 +1407,8 @@ def phase2_tear_round(pw, res, device, smi_line):
     first, second = added[0][0], added[1][0]
     cap = kw["max_cuts_per_round"]
     require(0 < first <= cap and (first == cap or second == 0), f"K8 LUAD: cuts added {added}")
-    TEAR_STATES["luad_round0"] = dict(k7_args=k7_args, k8_args=args, k8_state=state,
-                                      register=one, cuts_added=zero, kw=kw)
+    TEAR_STATES["luad_round0"] = dict(k2_args=k2_args, k7_args=k7_args, k8_args=args,
+                                      k8_state=state, register=one, cuts_added=zero, kw=kw)
     work = [t.clone() for t in state]
 
     def reset():
@@ -2389,15 +2547,19 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
             pairs6.append((a[b, :T], b_))
         require(not bool(got[0][b, T:].any()), f"K6 (d) window {b}: a padded triangle checked")
     t6 = median_ms(lambda: tear_metrics_batch(*k6_args))
+    k6_alone = kernel_stats(lambda: tear_metrics_batch(*k6_args), "tear_metrics")
     t6_p = median_ms(lambda: tear_metrics_batch_plain(*k6_args), reps=10, warmup=1)
     n6 = tensor_bytes(*k6_args, *got)
     b6 = bound_ms(n6)
     err6 = max_abs_diff(pairs6)
     log(f"[phase 6] (d) K6 on {B} windows, T = {T_list} padded to {T_pad}: bit-equal to "
-        f"{B} solo K2 launches and to the plain version (max abs err {err6}); {int(got[0].sum())} checked, "
-        f"{int(got[1].sum())} flipped; kernel {t6:.4f} ms (median of 60), plain {t6_p:.3f} ms "
-        f"(median of 10); bound {n6 / 1e6:.3f} MB = {b6 * 1e3:.3f} us; {smi_line}")
-    out["k6"] = {"err": err6, "ms": t6, "plain_ms": t6_p, "bound_ms": b6}
+        f"{B} solo K2 calls and to the plain version (max abs err {err6}); "
+        f"{int(got[0].sum())} checked, {int(got[1].sum())} flipped; kernel alone "
+        f"{fmt_stats(k6_alone)}, wrapper call {t6:.4f} ms (median of 60), plain "
+        f"{t6_p:.3f} ms (median of 10); bound {n6 / 1e6:.3f} MB = {b6 * 1e3:.3f} us; "
+        f"{smi_line}")
+    out["k6"] = {"err": err6, "ms": t6, "plain_ms": t6_p, "bound_ms": b6,
+                 "kernel": k6_alone}
     out.update(batch_tear_round(pws, k6_args, got, k.choice, T_list, T_pad, device, smi_line))
 
     # (e) Each batch of the mesh run against solo loops given its budget.
@@ -2485,8 +2647,8 @@ def batch_tear_round(pws, k6_args, k6_out, choice, T_list, T_pad, device, smi_li
     reg, done = np.ones(B, bool), np.zeros(B, np.int64)
     kw = dict(L=L, K=K, max_cuts_per_round=1000, max_cuts_total=1 << 30)
     added, _, _ = run_cuts_twice("(g) stack", args, state, reg, done, **kw)
-    TEAR_STATES["stack"] = dict(k7_args=k7_args, k8_args=args, k8_state=state, register=reg,
-                                cuts_added=done, kw=kw)
+    TEAR_STATES["stack"] = dict(k6_args=k6_args, k7_args=k7_args, k8_args=args,
+                                k8_state=state, register=reg, cuts_added=done, kw=kw)
     t7 = median_ms(lambda: tear_scalars(*k7_args))
     k7_alone = kernel_ms(lambda: tear_scalars(*k7_args), "tear_scalars")
     work = [t.clone() for t in state]
@@ -2615,6 +2777,11 @@ def profile_solve(pw, device, out_dir):
     prof.export_chrome_trace(os.path.join(out_dir, "auction_200_rounds_trace.json"))
 
 
+def stat(st, key):
+    """A field of kernel_stats' result, or None where it measured nothing."""
+    return None if st is None else st[key]
+
+
 def save_tear_states(path):
     """Write TEAR_STATES (tensors moved to the host) to ``path``, if given."""
     if not path:
@@ -2627,7 +2794,7 @@ def save_tear_states(path):
     states = {name: {k: host(v) for k, v in st.items()} for name, st in TEAR_STATES.items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(states, path)
-    log(f"[states] K7 and K8 inputs ({', '.join(states)}) saved to {path}")
+    log(f"[states] K2, K4, K6, K7 and K8 inputs ({', '.join(states)}) saved to {path}")
 
 
 def main():
@@ -2645,8 +2812,9 @@ def main():
                     help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
                          "minutes more)")
     ap.add_argument("--save-tear-states", metavar="FILE", default=None,
-                    help="save the inputs of K7 and K8 at the LUAD window's round 0 and "
-                         "on phase 6's stack to FILE, for tear_round_bench.py")
+                    help="save the inputs of K2, K7 and K8 at the LUAD window's round 0, "
+                         "of K6, K7 and K8 on phase 6's stack and of K4 on the LUAD "
+                         "problem to FILE, for tear_round_bench.py")
     args = ap.parse_args()
 
     import torch
@@ -2747,6 +2915,8 @@ def main():
             "launches": summary["launches"]["tear_metrics"],
             "max_abs_err": k2_win[0], "ms": k2_win[1], "plain_ms": k2_win[2],
             "bound_ms": k2_win[3], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": stat(k2_win[4], "ms"),
+            "device_launches_a_call": stat(k2_win[4], "launches"),
         },
         # K3 and K4 run only where a window selects them: their launches are
         # those of the grid's third run. No single PyTorch call computes
@@ -2769,7 +2939,10 @@ def main():
             "launches": grid[2]["launches"]["sinkhorn_sparse"],
             "max_abs_err": k4["err"], "ms": k4["ms"], "plain_ms": k4["plain_ms"],
             "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
-            "bit_equal_to_plain": k4["bit_equal"],
+            "bit_equal_to_plain": k4["bit_equal"], "kernel_ms": stat(k4["kernel"], "ms"),
+            "device_launches_a_call": stat(k4["kernel"], "launches"),
+            "ref_entry_lists_ms": k4["ref_entry_lists_ms"],
+            "kernel_ms_40000_rows": k4["kernel_ms_big"],
         },
     ]
     # K5 and K6 run on the batched path: their launches are those of the
@@ -2798,6 +2971,8 @@ def main():
             "launches": mesh_launches["tear_metrics_batch"],
             "max_abs_err": k6["err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
             "bound_ms": k6["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": stat(k6["kernel"], "ms"),
+            "device_launches_a_call": stat(k6["kernel"], "launches"),
         },
     ]
     # K7 and K8 run in both tear loops: their launches are the main path's

@@ -15,8 +15,12 @@ entries sorted by row, then column (``ref_entry_lists``, built once per
 problem), where the JAX version scatter-adds. Against XLA's reduction order
 that moves results in the last bits only.
 
-One call of the wrapper enqueues the whole chain of ``2 * n_iters + 1``
-launches from C; ``sinkhorn_sparse.launches`` counts calls.
+On the card a call is one launch of one thread-block cluster that runs every
+iteration, plus ``ref_entry_lists``' PyTorch ops before it;
+``sinkhorn_sparse.launches`` counts calls. ``sinkhorn_sparse.g_memory`` says
+where the last call kept the duals during its row passes ("shared": a copy in
+each block's shared memory, or "global") and ``row_warps`` how many warps a
+block ran them.
 """
 
 from __future__ import annotations
@@ -105,7 +109,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_sinkhorn_sparse.restype = i
         lib.same_sinkhorn_sparse.argtypes = (
-            [p] * 6 + [i, i, i, ctypes.c_float, i] + [p] * 3
+            [p] * 6 + [i, i, i, ctypes.c_float, i] + [p] * 4
         )
     return lib
 
@@ -130,7 +134,7 @@ def sinkhorn_sparse(
         ("cand_mask", cand_mask, torch.bool, (n, K)),
         ("nm_cost", nm_cost, torch.float32, (n,)),
     ))
-    if n_ref < 1 or n * (K + 1) >= 2**31:
+    if n_ref < 1 or K < 1 or n * (K + 1) >= 2**31:
         raise ValueError(f"sinkhorn_sparse: n_ref = {n_ref}, [n, K] = [{n}, {K}]")
     lib = _lib()
     ptr, ent = ref_entry_lists(cand_ref.long().clamp(0, n_ref - 1), cand_mask, n_ref)
@@ -138,14 +142,16 @@ def sinkhorn_sparse(
     plan = torch.empty((n, K + 1), dtype=torch.float32, device=dev)
     if n == 0:
         return plan, g
+    shape = (ctypes.c_int * 2)()
     rc = lib.same_sinkhorn_sparse(
         cand_cost.data_ptr(), cand_ref.data_ptr(), cand_mask.data_ptr(),
         nm_cost.data_ptr(), ptr.data_ptr(), ent.data_ptr(), n, K, n_ref,
-        float(np.float32(eps)), n_iters, g.data_ptr(), plan.data_ptr(),
+        float(np.float32(eps)), n_iters, g.data_ptr(), plan.data_ptr(), shape,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "sinkhorn_sparse")
-    _build.count_launch(sinkhorn_sparse)
+    _build.count_launch(sinkhorn_sparse, g_memory="shared" if shape[0] else "global",
+                        row_warps=shape[1])
     return plan, g
 
 

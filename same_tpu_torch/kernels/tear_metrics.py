@@ -8,9 +8,13 @@ as [T] bool, [T] bool and [T] int8.
 
 ``tear_metrics_batch`` (kernel K6) does the same for every window of a batch
 stacked on a leading axis, the vmapped tear round of
-``same_tpu/solver/tearing_device.py::run_tearing_device_batch``: one launch,
-outputs [B, T]; its plain version loops ``tear_metrics_plain`` over the
-windows.
+``same_tpu/solver/tearing_device.py::run_tearing_device_batch``: outputs
+[B, T]; its plain version loops ``tear_metrics_plain`` over the windows.
+
+On the card a call is two launches from one C call: the row regret (one warp
+a row, into a [B * n] scratch the wrapper allocates), then the triangles.
+``row_regret_plain`` is the first step's plain version, JAX's regret formula;
+``launches`` counts calls.
 """
 
 from __future__ import annotations
@@ -25,20 +29,15 @@ from . import _build
 NEG_INF = float("-inf")
 
 
-def tear_metrics_plain(
-    costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask, src,
-    ref_xy, prices, choice,
-):
-    """Plain PyTorch twin of K2 (same_tpu/solver/tearing.py:72-104)."""
-    n, C = costs.shape
+def row_regret_plain(costs, extra, slots, valid, nm, pair_idx, cand_ref, prices, choice):
+    """Each row's auction regret and matched ref, ``(regret [n] f32,
+    match_ref [n] int)``: held value minus the best alternative outside the
+    held pair (same_tpu/solver/tearing.py:85-101)."""
+    C = costs.shape[1]
     col = choice.clamp(0, C - 1).long()[:, None]
     is_match = choice < C
     match_pair = torch.where(is_match, pair_idx.gather(1, col)[:, 0], -1)
     match_ref = torch.where(is_match, cand_ref.gather(1, col)[:, 0], -1)
-
-    checked, flipped = matched_triangle_flips(ref_xy, tris, tri_mask, match_ref, src)
-
-    # Auction regret: held value minus best alternative outside the held pair.
     eff = costs + extra
     p_slot = prices[slots.long()]
     vals = torch.where(valid, -(eff + p_slot), NEG_INF)
@@ -47,7 +46,19 @@ def tear_metrics_plain(
     alt_best = torch.maximum(
         torch.where(alt_mask, vals, NEG_INF).max(dim=1).values, -nm
     )
-    regret = held - alt_best
+    return held - alt_best, match_ref
+
+
+def tear_metrics_plain(
+    costs, extra, slots, valid, nm, pair_idx, cand_ref, tris, tri_mask, src,
+    ref_xy, prices, choice,
+):
+    """Plain PyTorch twin of K2 (same_tpu/solver/tearing.py:72-104)."""
+    n = costs.shape[0]
+    regret, match_ref = row_regret_plain(
+        costs, extra, slots, valid, nm, pair_idx, cand_ref, prices, choice
+    )
+    checked, flipped = matched_triangle_flips(ref_xy, tris, tri_mask, match_ref, src)
     tri_regret = regret[tris.clamp(0, n - 1).long()]
     vmove = tri_regret.argmin(dim=1).to(torch.int8)
     return checked, flipped, vmove
@@ -58,10 +69,15 @@ def _lib():
     if lib.same_tear_metrics.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_tear_metrics.restype = i
-        lib.same_tear_metrics.argtypes = [p] * 13 + [i, i, i, i] + [p] * 4
+        lib.same_tear_metrics.argtypes = [p] * 13 + [i] * 5 + [p] * 5
         lib.same_tear_metrics_batch.restype = i
-        lib.same_tear_metrics_batch.argtypes = [p] * 13 + [i] * 6 + [p] * 4
+        lib.same_tear_metrics_batch.argtypes = [p] * 13 + [i] * 6 + [p] * 5
     return lib
+
+
+def _scratch(rows, device):
+    """Step 1's output, one (regret f32, match_ref i32) pair a row."""
+    return torch.empty((rows, 2), dtype=torch.int32, device=device)
 
 
 def tear_metrics(
@@ -98,13 +114,14 @@ def tear_metrics(
     checked = torch.empty(T, dtype=torch.bool, device=costs.device)
     flipped = torch.empty(T, dtype=torch.bool, device=costs.device)
     vmove = torch.empty(T, dtype=torch.int8, device=costs.device)
+    scratch = _scratch(n, costs.device)
     stream = torch.cuda.current_stream(costs.device).cuda_stream
     rc = lib.same_tear_metrics(
         choice.data_ptr(), cand_ref.data_ptr(), pair_idx.data_ptr(),
         costs.data_ptr(), extra.data_ptr(), slots.data_ptr(), valid.data_ptr(),
         nm.data_ptr(), prices.data_ptr(), tris.data_ptr(), tri_mask.data_ptr(),
-        src.data_ptr(), ref_xy.data_ptr(), n, C, m, T, checked.data_ptr(),
-        flipped.data_ptr(), vmove.data_ptr(), stream,
+        src.data_ptr(), ref_xy.data_ptr(), n, C, S1, m, T, scratch.data_ptr(),
+        checked.data_ptr(), flipped.data_ptr(), vmove.data_ptr(), stream,
     )
     _build.check(lib, rc, "tear_metrics")
     _build.count_launch(tear_metrics)
@@ -172,7 +189,8 @@ def tear_metrics_batch(
             choice.data_ptr(), cand_ref.data_ptr(), pair_idx.data_ptr(),
             costs.data_ptr(), extra.data_ptr(), slots.data_ptr(), valid.data_ptr(),
             nm.data_ptr(), prices.data_ptr(), tris.data_ptr(), tri_mask.data_ptr(),
-            src.data_ptr(), ref_xy.data_ptr(), B, n, C, S1, m, T, checked.data_ptr(),
+            src.data_ptr(), ref_xy.data_ptr(), B, n, C, S1, m, T,
+            _scratch(B * n, costs.device).data_ptr(), checked.data_ptr(),
             flipped.data_ptr(), vmove.data_ptr(),
             torch.cuda.current_stream(costs.device).cuda_stream,
         )
