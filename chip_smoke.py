@@ -41,14 +41,23 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      column of a row at one cost, zero prices: the first minimum decides)
      and on a random window with C = 40 (two sweeps of a warp's lanes),
      bit-equal;
-   - K3 on the LUAD window's own coordinates (10,681 queries, 11,418 refs,
-     k = 8, radius 250): ``idx`` and ``mask`` identical, ``dist`` bit-equal;
-     and against the host cKDTree on the same input, within what the f32
-     expansion |q|^2 + |r|^2 - 2 q.r allows at these coordinates (4 ulp of
-     |q|^2 + |r|^2 on every squared distance, twice that between the two
-     lists position by position); the rows whose lists differ are counted;
-     and at k = 65, radius 800 (two passes of the kernel, ROADMAP C12)
-     bit-equal to its plain version;
+   - K3 (the refs binned into a grid of cells on the card, a warp a query)
+     on the LUAD window's own coordinates (10,681 queries, 11,418 refs):
+     (a) k = 8, radius 250, (b) k = 65, radius 800 (two passes, ROADMAP C12)
+     and (c) radius inf, k = 1 (``nearest_neighbors_device``, one cell);
+     (d) the automatic cutover, 64,000 x 64,000 points at LUAD density over
+     a 30,800-unit square through ``candidates.radius_knn`` with no backend
+     and no ``SAME_TPU_KNN`` (K3 must launch); and refs on rings just
+     outside the radius near 13,000 units, where the f32 expansion admits
+     refs whose exact distance is above it (at least one must be admitted;
+     the count is printed): ``idx`` and ``mask`` identical, ``dist``
+     bit-equal to the plain version in each; (a) also against the host
+     cKDTree, within what the f32 expansion |q|^2 + |r|^2 - 2 q.r allows
+     at these coordinates (4 ulp of |q|^2 + |r|^2 on every squared
+     distance, twice that between the two lists position by position); the
+     rows whose lists differ are counted. Each case's wrapper call (CUDA
+     events), kernel alone (torch.profiler), binning alone and plain
+     version, beside the brute-force bound and what its inputs need;
    - K4 on the LUAD problem ([12288, 24], 100 iterations): ``g`` within 1e-4
      of its largest magnitude and the plan within 1e-5 (the design is
      bit-equal but for CUDA's exp and log, which may be compiled another way
@@ -81,11 +90,14 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      20 launches) and its wrapper call's (CUDA events, median);
    - K9 ``bid_compute`` at [12288, 8] and [12288, 24] on the
      microbenchmark's instance: bit-equal to its plain version;
-   - K10 ``sinkhorn_dense`` through ``same_tpu_torch.ops.sinkhorn`` (no
-     ``device``) at [4096, 4096], eps 0.05, 200 iterations: finite, its
-     largest error on f and g against a float64 run of the plain version at
-     most twice the float32 plain version's, the plan's columns summing to
-     their marginals.
+   - K10 ``sinkhorn_dense`` (one cooperative launch a call) through
+     ``same_tpu_torch.ops.sinkhorn`` (no ``device``) at [4096, 4096], eps
+     0.05, 200 iterations: finite, its largest error on f and g against a
+     float64 run of the plain version at most twice the float32 plain
+     version's, the plan's columns summing to their marginals, one device
+     launch a call under torch.profiler; then at [1000, 4097] and [1, 4096],
+     held to the larger of twice the float32 plain version's error and 4 ulp
+     of the largest |f| or |g|; each called twice with the same bits.
 7. The microbenchmark ``python -m same_tpu_torch.microbench`` at its
    defaults ([12288, 8], 200 iterations), in this process: its five rows,
    (a) a full bidding round by K1 and by the plain round, (b) the price
@@ -173,9 +185,10 @@ the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
-phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K2, K4, K6,
-K7 and K8 were checked on (the LUAD window's round 0 and problem, phase 6's
-stack) to FILE for ``tear_round_bench.py``.
+phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
+K6, K7 and K8 were checked on (the LUAD window's round 0, problem and
+coordinates, phase 6's stack) to FILE for ``tear_round_bench.py`` and
+``knn_sinkhorn_bench.py``.
 """
 
 from __future__ import annotations
@@ -572,27 +585,167 @@ def k2_synthetic(rng, n, C, T, S, m):
             rng.uniform(0, 5, S + 1).astype(np.float32), choice)
 
 
+# K3's pass kernel's name in a profiler trace (this tree's and the parent's);
+# the binning's launches (the bounds, read to the host, then the counting
+# sort); and all the device work of a K3 call, which "kernel alone" sums.
+K3_KERNEL = "radius_knn_kernel"
+K3_BINNING = ("bounds_kernel", "cell_count_kernel", "scan_kernel", "scatter_kernel", "Memset",
+              "Memcpy")
+K3_CALL = (K3_KERNEL,) + K3_BINNING
+# Phase 2's K3 input (d): LUAD density (11,418 refs over 13,000^2) over a
+# 30,800-unit square, 64,000 points a side, so n * m = 4.1e9 passes the
+# automatic cutover of candidates.radius_knn (4e9) with no backend asked.
+KNN_CUTOVER = dict(points=64000, extent=30800.0, seed=5)
+
+
+def knn_visited_pairs(q, grid):
+    """The (query, ref) pairs that K3 tests on ``grid``: the refs of each
+    query's visited cells, summed (every pair on a one-cell grid)."""
+    import torch
+
+    from same_tpu_torch.kernels.radius_knn import visited_cells
+
+    if not grid.cells:
+        return q.shape[0] * grid.ref_xy.shape[0]
+    xlo, xhi, ylo, yhi, any_ = visited_cells(q, grid)
+    starts = grid.cell_start.long()
+    total = 0
+    for d in range(int((yhi - ylo + 1).clamp_min(0).max())):
+        row = ylo + d
+        base = row.clamp(0, grid.gy - 1) * grid.gx
+        runs = starts[base + xhi.clamp_min(0) + 1] - starts[base + xlo]
+        total += int(torch.where(any_ & (row <= yhi), runs, 0).sum())
+    return total
+
+
+def check_k3_binning(tag, q, r, grid):
+    """The card's binning of (q, r) on ``grid``: every ref once, the binned
+    refs the refs, in ascending cell id by the f32 steps of ``point_cells``,
+    ``cell_start`` their cells' starts, the queries once in ascending cell id."""
+    import torch
+
+    from same_tpu_torch.kernels.radius_knn import point_cells
+
+    m, cells = r.shape[0], grid.gx * grid.gy
+    ref_idx, q_order = grid.ref_idx.long(), grid.query_order.long()
+    require_equal(f"K3 {tag} binning: each ref once", torch.sort(ref_idx).values,
+                  torch.arange(m, device=r.device))
+    require_equal(f"K3 {tag} binning: the binned refs", grid.ref_xy, r[ref_idx])
+    cx, cy = point_cells(grid.ref_xy, grid)
+    cell = cy * grid.gx + cx
+    require(bool((cell[1:] >= cell[:-1]).all()), f"K3 {tag} binning: refs out of cell order")
+    starts = torch.searchsorted(cell, torch.arange(cells + 1, device=r.device))
+    require_equal(f"K3 {tag} binning: cell starts", grid.cell_start.long(), starts)
+    require_equal(f"K3 {tag} binning: each query once", torch.sort(q_order).values,
+                  torch.arange(q.shape[0], device=q.device))
+    qx, qy = point_cells(q[q_order], grid)
+    qcell = qy * grid.gx + qx
+    require(bool((qcell[1:] >= qcell[:-1]).all()),
+            f"K3 {tag} binning: queries out of cell order")
+
+
+def k3_case(tag, q, r, radius, k, smi_line, reps=30, plain_reps=3):
+    """K3 against its plain version on the card on (q, r): idx, mask and
+    dist bit-equal, and the binning checked. Times: the wrapper call (CUDA
+    events); under torch.profiler the call's device work (every launch, memset
+    and copy of a call summed: "kernel alone"), the pass kernel's and the
+    binning's; the binning as a call (CUDA events); the plain version.
+    Bounds: what these inputs need (the bytes once, or the pairs of the
+    visited cells' operations), and beside it the brute-force operations
+    (the function as the JAX package does it)."""
+    import torch
+
+    from same_tpu_torch.kernels.radius_knn import knn_grid, radius_knn, radius_knn_plain
+
+    before = radius_knn.launches
+    out_k = radius_knn(q, r, radius, k)
+    launches = radius_knn.launches - before
+    out_p = radius_knn_plain(q, r, radius, k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "dist", "mask"), out_k, out_p):
+        require_equal(f"K3 {tag} {name}", a, b)
+    filled = out_k[2] & out_p[2]
+    err = float((out_k[1] - out_p[1]).abs()[filled].max()) if bool(filled.any()) else 0.0
+    grid = knn_grid(q, r, radius)
+    if grid.cells:
+        check_k3_binning(tag, q, r, grid)
+    n, m = q.shape[0], r.shape[0]
+    pairs = knn_visited_pairs(q, grid)
+
+    def call():
+        return radius_knn(q, r, radius, k)
+
+    t_wrap = median_ms(call, reps=reps)
+    alone = kernel_stats(call, K3_CALL)
+    passes = kernel_stats(call, K3_KERNEL)
+    binning = kernel_stats(call, K3_BINNING)
+    t_grid = median_ms(lambda: knn_grid(q, r, radius), reps=reps)
+    t_plain = median_ms(lambda: radius_knn_plain(q, r, radius, k), reps=plain_reps,
+                        warmup=1 if plain_reps > 1 else 0)
+    nbytes = tensor_bytes(q, r, *out_k)
+    # Per pair: 3 mul, 3 add/sub, the clamp and the test.
+    b_brute, b_bytes = 8.0 * n * m / F32_FLOP_PER_S * 1e3, bound_ms(nbytes)
+    b_pairs = 8.0 * pairs / F32_FLOP_PER_S * 1e3
+    layout = (f"grid {grid.gx} x {grid.gy} cells, reach {grid.reach:.4f}" if grid.cells
+              else "one cell")
+    log(f"[phase 2] K3 {tag}: {n} queries, {m} refs, k = {k}, radius {radius:g}: idx, mask, "
+        f"dist bit-equal to the plain version ({int(out_k[2].sum())} slots filled, max |dist "
+        f"- plain| {err:g}); {layout}{', binning checked' if grid.cells else ''}, {pairs} "
+        f"pairs tested ({pairs / max(n, 1):.1f} a query); {launches} pass launch(es); wrapper "
+        f"call {t_wrap:.4f} ms (median of {reps}); the call's device work alone "
+        f"{fmt_stats(alone)}, of which the pass kernel {fmt_stats(passes)} and the binning "
+        f"{fmt_stats(binning)}; binning as a call {t_grid:.4f} ms; plain {t_plain:.3f} ms; "
+        f"bound: what these inputs need {max(b_bytes, b_pairs) * 1e3:.3f} us (bytes "
+        f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.3f} us; the visited pairs' operations "
+        f"{b_pairs * 1e3:.3f} us); brute-force operations {b_brute * 1e3:.3f} us (8 n m = "
+        f"{8.0 * n * m / 1e9:.3f} GFLOP at 67 TFLOP/s); {smi_line}")
+    return {"ms": t_wrap, "kernel_ms": stat(alone, "ms"),
+            "device_launches_a_call": stat(alone, "launches"),
+            "pass_kernel_ms": stat(passes, "ms"), "binning_kernel_ms": stat(binning, "ms"),
+            "launches": launches, "binning_ms": t_grid, "plain_ms": t_plain,
+            "bound_ms": max(b_bytes, b_pairs),
+            "bound_by": "bytes" if b_bytes >= b_pairs else "operations",
+            "bound_ms_bruteforce": b_brute, "pairs": pairs, "cells": grid.cells,
+            "out": out_k, "err": err}
+
+
+def edge_rings(center, radius, queries, per_query, seed):
+    """Queries uniform within 400 units of (center, center), each with
+    ``per_query`` refs on a ring just outside ``radius`` (0 to 0.05 units
+    beyond it, float64, then rounded to float32): refs whose expansion d2
+    lies within the expansion's error of radius^2."""
+    rng = np.random.default_rng(seed)
+    q = (center + rng.uniform(-400, 400, (queries, 2))).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, (queries, per_query))
+    rr = radius + rng.uniform(0, 0.05, (queries, per_query))
+    q64 = q.astype(np.float64)
+    refs = np.stack([q64[:, :1] + rr * np.cos(ang), q64[:, 1:] + rr * np.sin(ang)], -1)
+    return q, refs.reshape(-1, 2).astype(np.float32)
+
+
 def phase2_knn(mc_ref, mc_align, device, smi_line):
-    """K3 on the LUAD window's coordinates: against its plain version (bit
-    for bit) and against the host cKDTree (within the f32 expansion)."""
+    """K3 on the LUAD window's coordinates, (a) k = 8, radius 250, (b) k =
+    65, radius 800 and (c) the nearest-neighbour call (radius inf, k = 1);
+    (d) the automatic cutover, 64,000 x 64,000 points, through
+    candidates.radius_knn with no backend; and refs at the radius' edge near
+    13,000 units: each bit-equal to the plain version. (a) also against the
+    host cKDTree, within the f32 expansion."""
     import torch
 
     from same_tpu_torch.candidates import radius_knn as radius_knn_host
-    from same_tpu_torch.kernels.radius_knn import radius_knn, radius_knn_plain
+    from same_tpu_torch.kernels.radius_knn import (
+        radius_knn, radius_knn_plain, radius_sq, squared_distances,
+    )
+    from same_tpu_torch.ops.pairwise import nearest_neighbors_device
 
     k, radius = OPTIM["knn"], float(OPTIM["radius"])
     q64 = mc_align.metacell_df[["X", "Y"]].to_numpy(dtype=np.float64)
     r64 = mc_ref.metacell_df[["X", "Y"]].to_numpy(dtype=np.float64)
     q = torch.as_tensor(np.ascontiguousarray(q64, dtype=np.float32)).to(device)
     r = torch.as_tensor(np.ascontiguousarray(r64, dtype=np.float32)).to(device)
-    n, m = len(q64), len(r64)
-    out_k = radius_knn(q, r, radius, k)
-    out_p = radius_knn_plain(q, r, radius, k)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("idx", "dist", "mask"), out_k, out_p):
-        require_equal(f"K3 {name}", a, b)
-    finite = out_k[2]
-    err = float((out_k[1][finite] - out_p[1][finite]).abs().max())
+    TEAR_STATES["knn"] = {"query": q.cpu(), "ref": r.cpu()}
+    a = k3_case("(a) LUAD window", q, r, radius, k, smi_line)
+    out_k = a.pop("out")
 
     # Against the exact answer: each squared distance the kernel reports is
     # within 4 ulp of |q|^2 + |r|^2 of the exact one (the expansion's
@@ -619,40 +772,70 @@ def phase2_knn(mc_ref, mc_align, device, smi_line):
     edge = int((mask_k != mask_h).sum())
     filled = mask_k & mask_h
     dd = float(np.abs(dist_k[filled] - dist_h[filled]).max()) if filled.any() else 0.0
+    log(f"[phase 2] K3 (a) against the cKDTree: {rows} rows differ ({edge} slots filled by one "
+        f"only, largest distance gap {dd:.4f}, all within 4 ulp of |q|^2+|r|^2 = "
+        f"{float(tol.max()):.1f} units^2 at most)")
 
-    t_k = median_ms(lambda: radius_knn(q, r, radius, k), reps=30)
-    t_p = median_ms(lambda: radius_knn_plain(q, r, radius, k), reps=3, warmup=1)
-    nbytes = tensor_bytes(q, r, *out_k)
-    flops = 8.0 * n * m  # per pair: 3 mul, 3 add/sub, the clamp and the test
-    b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
-    log(f"[phase 2] K3 LUAD window: {n} queries, {m} refs, k = {k}, radius {radius:g}; "
-        f"idx, mask, dist bit-equal to the plain version; against the cKDTree {rows} rows "
-        f"differ ({edge} slots filled by one only, largest distance gap {dd:.4f}, all "
-        f"within 4 ulp of |q|^2+|r|^2 = {float(tol.max()):.1f} units^2 at most); "
-        f"kernel {t_k:.4f} ms (median of 30), plain {t_p:.3f} ms (median of 3); bound "
-        f"{flops / 1e9:.3f} GFLOP / 67 TFLOP/s = {b_ops * 1e3:.2f} us (operations; bytes "
-        f"{nbytes / 1e6:.3f} MB = {b_bytes * 1e3:.2f} us); {smi_line}")
-
-    # k = 65, past the one-pass list of 64: two passes. At radius 800 a
+    # (b) k = 65, past the one-pass list of 64: two passes. At radius 800 a
     # query has about 135 refs in range, so the second pass fills its column.
-    k65, r65 = 65, 800.0
-    before = radius_knn.launches
-    out_k = radius_knn(q, r, r65, k65)
-    passes = radius_knn.launches - before
-    out_p = radius_knn_plain(q, r, r65, k65)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("idx", "dist", "mask"), out_k, out_p):
-        require_equal(f"K3 k = {k65} {name}", a, b)
-    require(passes == 2, f"K3 k = {k65}: {passes} launches, expected 2 passes")
-    full = int(out_k[2].all(dim=1).sum())
-    require(full > 0, f"K3 k = {k65}: no query has {k65} refs in range")
-    t_k65 = median_ms(lambda: radius_knn(q, r, r65, k65), reps=10)
-    log(f"[phase 2] K3 k = {k65}, radius {r65:g}: idx, mask, dist bit-equal to the plain "
-        f"version in {passes} launches ({full} of {n} queries with all {k65} filled); "
-        f"kernel {t_k65:.4f} ms (median of 10); {smi_line}")
-    return {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "rows_differing_from_ckdtree": rows, "ms_k65": t_k65}
+    b = k3_case("(b) k = 65, radius 800", q, r, 800.0, 65, smi_line, reps=10)
+    require(b["launches"] == 2, f"K3 (b): {b['launches']} launches, expected 2 passes")
+    full = int(b.pop("out")[2].all(dim=1).sum())
+    require(full > 0, "K3 (b): no query has 65 refs in range")
+
+    # (c) the nearest-neighbour call: radius inf, one cell, every pair.
+    c = k3_case("(c) nearest neighbour, radius inf, k = 1", q, r, float("inf"), 1, smi_line,
+                reps=10)
+    c.pop("out")
+    require(not c["cells"], "K3 (c): radius inf must test every pair")
+    nn_idx, nn_dist = nearest_neighbors_device(q, r, k=1)
+    p_idx, p_dist, _ = radius_knn_plain(q, r, float("inf"), 1)
+    require_equal("K3 (c) nearest_neighbors_device idx", nn_idx, p_idx)
+    require_equal("K3 (c) nearest_neighbors_device dist", nn_dist, p_dist)
+
+    # (d) the automatic cutover: candidates.radius_knn with no backend and
+    # no SAME_TPU_KNN picks K3 above n * m = 4e9.
+    rng = np.random.default_rng(KNN_CUTOVER["seed"])
+    pts, ext = KNN_CUTOVER["points"], KNN_CUTOVER["extent"]
+    qd = rng.uniform(0, ext, (pts, 2)).astype(np.float32)
+    rd = rng.uniform(0, ext, (pts, 2)).astype(np.float32)
+    old_env = os.environ.pop("SAME_TPU_KNN", None)
+    try:
+        before = radius_knn.launches
+        t0 = time.time()
+        idx_c, dist_c, mask_c = radius_knn_host(qd, rd, radius, k)
+        t_call = time.time() - t0
+        auto = radius_knn.launches - before
+    finally:
+        if old_env is not None:
+            os.environ["SAME_TPU_KNN"] = old_env
+    require(auto == 1, f"K3 (d): candidates.radius_knn launched K3 {auto} times at "
+            f"n * m = {pts * pts:.3g}, expected 1")
+    qd_t, rd_t = torch.as_tensor(qd).to(device), torch.as_tensor(rd).to(device)
+    d = k3_case("(d) automatic cutover", qd_t, rd_t, radius, k, smi_line, reps=20, plain_reps=1)
+    d_out = [t.cpu() for t in d.pop("out")]
+    require_equal("K3 (d) candidates idx", torch.as_tensor(idx_c).int(), d_out[0])
+    require_equal("K3 (d) candidates dist", torch.as_tensor(dist_c).float(), d_out[1])
+    require_equal("K3 (d) candidates mask", torch.as_tensor(mask_c), d_out[2])
+    log(f"[phase 2] K3 (d): candidates.radius_knn (no backend, no SAME_TPU_KNN) launched K3 "
+        f"{auto} time, {t_call:.3f} s host clock with the copies to and from the card; "
+        f"its lists equal the kernel's above")
+
+    # Refs at the radius' edge near 13,000 units: the expansion admits some
+    # whose exact distance is above the radius; the grid must visit them.
+    qe, re_ = edge_rings(13000.0, radius, 400, 48, seed=9)
+    qe_t, re_t = torch.as_tensor(qe).to(device), torch.as_tensor(re_).to(device)
+    admitted = (squared_distances(qe_t, re_t) <= radius_sq(radius)).cpu().numpy()
+    exact = ((qe.astype(np.float64)[:, None, :] - re_.astype(np.float64)[None]) ** 2).sum(-1)
+    beyond = int((admitted & (exact > radius_sq(radius))).sum())
+    require(beyond >= 1, "K3 edge: the expansion admits no ref beyond the radius")
+    e = k3_case("edge rings near 13,000", qe_t, re_t, radius, k, smi_line, reps=10)
+    e.pop("out")
+    log(f"[phase 2] K3 edge rings near 13,000: the expansion admits {beyond} refs whose exact "
+        f"distance is above the radius ({int(admitted.sum())} admitted); all in the kernel's "
+        f"lists as in the plain version's; {smi_line}")
+    return dict(a, rows_differing_from_ckdtree=rows,
+                cases={"b": b, "c": c, "d": d, "edge": dict(e, beyond_radius=beyond)})
 
 
 # The K4 kernels' names, this tree's and the parent's (two launches an
@@ -1138,9 +1321,10 @@ def phase2_loop(pw, device, smi_line):
 # ----------------------------------------------------------------------------
 
 # The inputs of K2, K7 and K8 at the LUAD window's round 0, of K6, K7 and K8
-# on phase 6's stack and of K4 on the LUAD problem, kept for
-# --save-tear-states (tear_round_bench.py times them). Filled by
-# phase2_sinkhorn, phase2_tear_round and batch_tear_round.
+# on phase 6's stack, of K4 on the LUAD problem and K3's LUAD coordinates,
+# kept for --save-tear-states (tear_round_bench.py and knn_sinkhorn_bench.py
+# time them). Filled by phase2_knn, phase2_sinkhorn, phase2_tear_round and
+# batch_tear_round.
 TEAR_STATES = {}
 
 
@@ -1548,9 +1732,70 @@ def phase2_bid_compute(device, smi_line):
     return out
 
 
+# K10's names in a profiler trace: this tree's one launch, and the parent's
+# transpose, row passes and plan.
+K10_KERNELS = ("sinkhorn_dense_kernel", "dual_update_kernel", "transpose_kernel", "plan_kernel")
+# Phase 2's K10 shapes beside [4096, 4096]: more columns than a block's
+# threads and not a multiple of them, and one row (one block owns rows).
+K10_SHAPES = ((1000, 4097), (1, 4096))
+
+
+def k10_inputs(n, m, device, seed=11):
+    """Costs uniform on [0, 5) from ``seed``, uniform marginals (numpy, and
+    on the card)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cost_np = rng.uniform(0, 5, (n, m)).astype(np.float32)
+    a_np, b_np = np.full(n, 1.0 / n, np.float32), np.full(m, 1.0 / m, np.float32)
+    return (cost_np, a_np, b_np), tuple(torch.as_tensor(x).to(device)
+                                        for x in (cost_np, a_np, b_np))
+
+
+def k10_check(tag, out, cost, a, b, eps, iters, ulp_floor):
+    """K10's output ``out`` against the plain version in float32 and float64
+    on the card: finite, the error on f and g against float64 at most twice
+    the float32 plain version's (with ``ulp_floor``, or 4 ulp of the largest
+    |f| or |g| where that is more), the columns meeting their marginals
+    within 1e-4 relative; and a second call giving the same bits."""
+    import torch
+
+    from same_tpu_torch.kernels.sinkhorn_dense import sinkhorn_dense, sinkhorn_dense_plain
+
+    plan, f, g = out
+    again = sinkhorn_dense(cost, a, b, eps, iters)
+    for name, x, y in zip(("plan", "f", "g"), out, again):
+        require_equal(f"K10 {tag} second call {name}", x, y)
+    p32 = sinkhorn_dense_plain(cost, a, b, eps, iters)
+    p64 = sinkhorn_dense_plain(cost.double(), a.double(), b.double(), eps, iters)
+    torch.cuda.synchronize()
+    for name, t in (("plan", plan), ("f", f), ("g", g)):
+        require(bool(torch.isfinite(t).all()), f"K10 {tag}: {name} is not finite")
+
+    def err(x, ref):
+        return float((x.double() - ref).abs().max())
+
+    e_k = max(err(f, p64[1]), err(g, p64[2]))
+    e_p = max(err(p32[1], p64[1]), err(p32[2], p64[2]))
+    allowed = 2 * e_p
+    if ulp_floor:
+        big = max(float(p64[1].abs().max()), float(p64[2].abs().max()))
+        allowed = max(allowed, 4 * float(np.spacing(np.float32(big))))
+    require(e_k <= allowed, f"K10 {tag}: error on f, g against float64 {e_k:.3g} is more than "
+            f"{allowed:.3g} (the float32 plain version's {e_p:.3g})")
+    # The last update is g's: the columns meet their marginals up to rounding.
+    col = float(((plan.double().sum(0) - b.double()) / b.double()).abs().max())
+    row = float(((plan.double().sum(1) - a.double()) / a.double()).abs().max())
+    require(col <= 1e-4, f"K10 {tag}: a plan column misses its marginal by {col:.3g} relative")
+    return {"err": e_k, "plain_err": e_p, "allowed": allowed, "col": col, "row": row,
+            "plan_err": err(plan, p64[0]), "kdiff": max(err(f, p32[1]), err(g, p32[2])),
+            "p32": p32}
+
+
 def phase2_sinkhorn_dense(device, smi_line):
     """K10 through the public op at [4096, 4096], eps 0.05, 200 iterations,
-    against the plain version in float32 and in float64 on the card."""
+    against the plain version in float32 and in float64 on the card; then at
+    [1000, 4097] and [1, 4096]; two calls the same bits at each."""
     import torch
 
     from same_tpu_torch.kernels.sinkhorn_dense import sinkhorn_dense, sinkhorn_dense_plain
@@ -1558,59 +1803,68 @@ def phase2_sinkhorn_dense(device, smi_line):
 
     n = m = 4096
     eps, iters = 0.05, 200
-    rng = np.random.default_rng(11)
-    cost_np = rng.uniform(0, 5, (n, m)).astype(np.float32)
-    a_np, b_np = np.full(n, 1.0 / n, np.float32), np.full(m, 1.0 / m, np.float32)
-    # The entry point, no device given: the card, one K10 call.
+    (cost_np, a_np, b_np), (cost, a, b) = k10_inputs(n, m, device)
+    # The entry point, no device given: the card, one K10 launch.
     sinkhorn_dense.launches = 0
-    plan, f, g = ops_sinkhorn.sinkhorn_dense(cost_np, a_np, b_np, eps=eps, n_iters=iters)
+    out = ops_sinkhorn.sinkhorn_dense(cost_np, a_np, b_np, eps=eps, n_iters=iters)
     torch.cuda.synchronize()
     launches = sinkhorn_dense.launches
-    require(launches == 1 and plan.device.type == "cuda",
-            f"K10: the op launched {launches} times on {plan.device}")
-    cost, a, b = (torch.as_tensor(x).to(device) for x in (cost_np, a_np, b_np))
-    p32 = sinkhorn_dense_plain(cost, a, b, eps, iters)
-    p64 = sinkhorn_dense_plain(cost.double(), a.double(), b.double(), eps, iters)
-    torch.cuda.synchronize()
-    for name, t in (("plan", plan), ("f", f), ("g", g)):
-        require(bool(torch.isfinite(t).all()), f"K10: {name} is not finite")
+    require(launches == 1 and out[0].device.type == "cuda",
+            f"K10: the op launched {launches} times on {out[0].device}")
+    chk = k10_check("[4096, 4096]", out, cost, a, b, eps, iters, ulp_floor=False)
+    p32 = chk.pop("p32")
 
-    def err(x, ref):
-        return float((x.double() - ref).abs().max())
+    def call():
+        return sinkhorn_dense(cost, a, b, eps, iters)
 
-    e_k = max(err(f, p64[1]), err(g, p64[2]))
-    e_p = max(err(p32[1], p64[1]), err(p32[2], p64[2]))
-    require(e_k <= 2 * e_p, f"K10: error on f, g against float64 {e_k:.3g} is more than "
-            f"twice the float32 plain version's {e_p:.3g}")
-    plan_err = err(plan, p64[0])
-    # The last update is g's: the columns meet their marginals up to rounding.
-    col = float(((plan.double().sum(0) - b.double()) / b.double()).abs().max())
-    row = float(((plan.double().sum(1) - a.double()) / a.double()).abs().max())
-    require(col <= 1e-4, f"K10: a plan column misses its marginal by {col:.3g} relative")
-    kdiff = max(err(f, p32[1]), err(g, p32[2]))
-    t_k = median_ms(lambda: sinkhorn_dense(cost, a, b, eps, iters), reps=5, warmup=1)
+    t_k = median_ms(call, reps=5, warmup=1)
+    blocks, res = sinkhorn_dense.shape
+    alone = kernel_stats(call, K10_KERNELS, reps=5)
+    require(stat(alone, "launches") in (None, 1.0),
+            f"K10: {stat(alone, 'launches')} device launches a call, expected 1")
     t_p = median_ms(lambda: sinkhorn_dense_plain(cost, a, b, eps, iters), reps=3, warmup=1)
     z_row = (p32[2][None, :] - cost) / torch.tensor(eps, device=device)
     z_col = (p32[1][:, None] - cost) / torch.tensor(eps, device=device)
     t_lib = iters * median_ms(lambda: (torch.logsumexp(z_row, 1), torch.logsumexp(z_col, 0)),
                               reps=20)
+    del z_row, z_col, p32
     entries = n * m
     flops = 12.0 * entries * iters + 4.0 * entries
-    nbytes = tensor_bytes(cost, a, b, plan, f, g)
+    nbytes = tensor_bytes(cost, a, b, *out)
     b_bytes, b_ops = bound_ms(nbytes), flops / F32_FLOP_PER_S * 1e3
     log(f"[phase 2] K10 [{n}, {m}], eps {eps}, {iters} iterations, through "
-        f"ops.sinkhorn.sinkhorn_dense on the card ({launches} call): max error on f, g against "
-        f"float64 {e_k:.3g}, float32 plain version's {e_p:.3g} (allowed 2x); kernel vs float32 "
-        f"plain {kdiff:.3g}; plan error {plan_err:.3g}; marginals within {col:.3g} (columns), "
-        f"{row:.3g} (rows) relative; kernel "
-        f"{t_k:.3f} ms (median of 5), plain {t_p:.3f} ms (median of 3), two torch.logsumexp "
-        f"x {iters} {t_lib:.3f} ms; bound {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = {b_ops:.4f} ms "
-        f"(operations; bytes {nbytes / 1e6:.1f} MB = {b_bytes:.4f} ms; the cost and its "
-        f"transpose read each iteration: {iters * 2 * 4 * entries / HBM_BYTES_PER_S * 1e3:.2f} "
-        f"ms); {smi_line}")
-    return {"err": e_k, "plain_err": e_p, "ms": t_k, "plain_ms": t_p, "library_ms": t_lib,
+        f"ops.sinkhorn.sinkhorn_dense on the card ({launches} launch; {blocks} blocks, {res} "
+        f"rows a block in shared memory): max error on f, g against float64 {chk['err']:.3g}, "
+        f"float32 plain version's {chk['plain_err']:.3g} (allowed 2x); kernel vs float32 "
+        f"plain {chk['kdiff']:.3g}; plan error {chk['plan_err']:.3g}; marginals within "
+        f"{chk['col']:.3g} (columns), {chk['row']:.3g} (rows) relative; a second call the same "
+        f"bits; wrapper call {t_k:.3f} ms (median of 5), kernel alone {fmt_stats(alone)}, "
+        f"plain {t_p:.3f} ms (median of 3), two torch.logsumexp x {iters} {t_lib:.3f} ms; "
+        f"bound {flops / 1e9:.2f} GFLOP / 67 TFLOP/s = {b_ops:.4f} ms (operations; bytes "
+        f"{nbytes / 1e6:.1f} MB = {b_bytes:.4f} ms; the parent's layout read the cost and its "
+        f"transpose each iteration: {iters * 2 * 4 * entries / HBM_BYTES_PER_S * 1e3:.2f} ms); "
+        f"{smi_line}")
+    shapes = {}
+    for sn, sm in K10_SHAPES:
+        _np_in, (c2, a2, b2) = k10_inputs(sn, sm, device)
+        out2 = sinkhorn_dense(c2, a2, b2, eps, iters)
+        c = k10_check(f"[{sn}, {sm}]", out2, c2, a2, b2, eps, iters, ulp_floor=True)
+        c.pop("p32")
+        t2 = median_ms(lambda: sinkhorn_dense(c2, a2, b2, eps, iters), reps=5, warmup=1)
+        blocks2, res2 = sinkhorn_dense.shape
+        log(f"[phase 2] K10 [{sn}, {sm}], eps {eps}, {iters} iterations ({blocks2} blocks, "
+            f"{res2} rows a block in shared memory): max error on f, g against float64 "
+            f"{c['err']:.3g}, float32 plain version's {c['plain_err']:.3g}, allowed "
+            f"{c['allowed']:.3g} (2x, or 4 ulp of the largest |f|, |g|); marginals within "
+            f"{c['col']:.3g} (columns), {c['row']:.3g} (rows) relative; a second call the same "
+            f"bits; wrapper call {t2:.3f} ms (median of 5); {smi_line}")
+        shapes[f"{sn}x{sm}"] = {"err": c["err"], "plain_err": c["plain_err"], "ms": t2}
+    return {"err": chk["err"], "plain_err": chk["plain_err"], "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_lib, "kernel_ms": stat(alone, "ms"),
+            "device_launches_a_call": stat(alone, "launches"),
             "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "operations" if b_ops >= b_bytes else "bytes", "launches": launches}
+            "bound_by": "operations" if b_ops >= b_bytes else "bytes", "launches": launches,
+            "shapes": shapes}
 
 
 # ----------------------------------------------------------------------------
@@ -2794,7 +3048,7 @@ def save_tear_states(path):
     states = {name: {k: host(v) for k, v in st.items()} for name, st in TEAR_STATES.items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(states, path)
-    log(f"[states] K2, K4, K6, K7 and K8 inputs ({', '.join(states)}) saved to {path}")
+    log(f"[states] K2, K3, K4, K6, K7 and K8 inputs ({', '.join(states)}) saved to {path}")
 
 
 def main():
@@ -2813,8 +3067,9 @@ def main():
                          "minutes more)")
     ap.add_argument("--save-tear-states", metavar="FILE", default=None,
                     help="save the inputs of K2, K7 and K8 at the LUAD window's round 0, "
-                         "of K6, K7 and K8 on phase 6's stack and of K4 on the LUAD "
-                         "problem to FILE, for tear_round_bench.py")
+                         "of K6, K7 and K8 on phase 6's stack, of K4 on the LUAD "
+                         "problem and K3's LUAD coordinates to FILE, for "
+                         "tear_round_bench.py and knn_sinkhorn_bench.py")
     args = ap.parse_args()
 
     import torch
@@ -2929,8 +3184,19 @@ def main():
             "launches": grid[2]["launches"]["radius_knn"],
             "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
             "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+            "bound_note": "bound_ms: what these inputs need (bytes once, or the visited "
+                          "pairs' operations); bound_ms_bruteforce: 8 n m operations at "
+                          "67 TFLOP/s, the function as the JAX package does it",
+            "bound_ms_bruteforce": k3["bound_ms_bruteforce"], "kernel_ms": k3["kernel_ms"],
+            "device_launches_a_call": k3["device_launches_a_call"],
+            "pass_kernel_ms": k3["pass_kernel_ms"],
+            "binning_kernel_ms": k3["binning_kernel_ms"], "binning_ms": k3["binning_ms"],
             "rows_differing_from_ckdtree": k3["rows_differing_from_ckdtree"],
-            "ms_k65": k3["ms_k65"],
+            "max_abs_err_cases": max(c["err"] for c in k3["cases"].values()),
+            "cases": {name: {key: c[key] for key in (
+                "ms", "kernel_ms", "pass_kernel_ms", "binning_kernel_ms", "binning_ms",
+                "plain_ms", "bound_ms", "bound_by", "bound_ms_bruteforce", "pairs", "launches",
+                "err")} for name, c in k3["cases"].items()},
         },
         {
             "name": "sinkhorn_sparse", "route": "cuda",
@@ -3023,6 +3289,9 @@ def main():
             "max_abs_err": k10["err"], "plain_max_abs_err": k10["plain_err"],
             "ms": k10["ms"], "plain_ms": k10["plain_ms"], "bound_ms": k10["bound_ms"],
             "bound_by": k10["bound_by"], "library_ms": k10["library_ms"],
+            "kernel_ms": k10["kernel_ms"],
+            "device_launches_a_call": k10["device_launches_a_call"],
+            "shapes": k10["shapes"],
         },
     ]
     for kern in kernels[:3] + kernels[-4:-2]:

@@ -6,7 +6,7 @@ one launch; ``auction_bid`` (K1) is a single bidding round on the same
 device bodies, kept as the test entry; ``tear_metrics`` (K2) is the tear
 round's flip test and cheapest-to-move vertex, ``tear_metrics_batch`` (K6)
 the same for a batch of windows; ``radius_knn`` (K3) is the
-brute-force device kNN and ``sinkhorn_sparse`` (K4) the Sinkhorn warm start's
+device kNN over a grid of cells and ``sinkhorn_sparse`` (K4) the Sinkhorn warm start's
 iterations, both run only where a window selects them; ``tear_scalars`` (K7)
 and ``register_cuts`` (K8) are the rest of a tear round (the stop rule's
 six values; cut registration and surcharge) in both tear loops;

@@ -9,11 +9,11 @@ runs ``sinkhorn_dense_plain``, a PyTorch transcription of
 The plain version computes in the inputs' dtype, float32 as the JAX package
 does (and float64 when given float64: the reference the smoke holds the
 kernel to). The kernel takes float32 and returns float32, but carries the
-duals and the logits in float64 between and within iterations: the duals'
-gauge direction (f + k, g - k) gathers float32 rounding over the
-iterations without decay, and the kernel keeps it out (see the note in the
-source). One call of the wrapper enqueues the whole chain of ``2 * n_iters
-+ 2`` launches from C; ``sinkhorn_dense.launches`` counts calls.
+duals in float64 between half-iterations and ends each logsumexp in float64:
+the duals' gauge direction (f + k, g - k) gathers any float32 rounding of
+f or g over the iterations without decay (see the note in the source). One
+call is one cooperative launch, every iteration inside it;
+``sinkhorn_dense.launches`` counts launches.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.same_sinkhorn_dense.restype = i
         lib.same_sinkhorn_dense.argtypes = (
-            [p] * 3 + [i, i, ctypes.c_float, i] + [p] * 7
+            [p] * 3 + [i, i, ctypes.c_float, i] + [p] * 7 + [i] + [p] * 6
         )
     return lib
 
@@ -72,19 +72,31 @@ def sinkhorn_dense(cost, a, b, eps: float = 0.1, n_iters: int = 200):
     g = torch.empty(m, dtype=torch.float32, device=dev)
     if n == 0 or m == 0:
         return plan, f.zero_(), g.zero_()
-    cost_t = torch.empty((m, n), dtype=torch.float32, device=dev)
-    f64 = torch.empty(n, dtype=torch.float64, device=dev)
-    g64 = torch.empty(m, dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         lib = _lib()
+        # The partials' rows: one a block of the launch (a block an SM), at most n.
+        rows = min(torch.cuda.get_device_properties(dev).multi_processor_count, n)
+        # f, g, eps * log(a), eps * log(b) in float64.
+        f64, g64, la, lb = torch.empty(2 * (n + m), dtype=torch.float64,
+                                       device=dev).split([n, m, n, m])
+        fp = torch.empty(n, dtype=torch.float32, device=dev)
+        gp = torch.empty(m, dtype=torch.float32, device=dev)
+        part = torch.empty((rows, m, 2), dtype=torch.float32, device=dev)
+        bar = torch.empty(2, dtype=torch.int32, device=dev)
+        shape = (ctypes.c_int * 2)()
         rc = lib.same_sinkhorn_dense(
             cost.data_ptr(), a.data_ptr(), b.data_ptr(), n, m, float(np.float32(eps)),
-            n_iters, cost_t.data_ptr(), f64.data_ptr(), g64.data_ptr(), plan.data_ptr(),
-            f.data_ptr(), g.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            n_iters, f64.data_ptr(), g64.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            fp.data_ptr(), gp.data_ptr(), part.data_ptr(), rows, bar.data_ptr(),
+            plan.data_ptr(), f.data_ptr(), g.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, shape,
         )
         _build.check(lib, rc, "sinkhorn_dense")
+    sinkhorn_dense.shape = (shape[0], shape[1])
     _build.count_launch(sinkhorn_dense)
     return plan, f, g
 
 
 sinkhorn_dense.launches = 0
+# (blocks, rows a block kept in shared memory) of the last launch.
+sinkhorn_dense.shape = None

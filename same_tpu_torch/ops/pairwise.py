@@ -1,11 +1,11 @@
-"""Brute-force radius-kNN on the device (counterpart of
-``same_tpu/ops/pairwise.py``).
+"""Radius-kNN on the device (counterpart of ``same_tpu/ops/pairwise.py``).
 
 Candidate generation in the reference is a per-point Python loop over a C++
-cKDTree (reference src/utils.py:709-742). On the card it is one sweep of
-kernel K3 (``kernels/radius_knn.py``): every query walks all refs, squared
-distances by the f32 expansion, and keeps its k best in registers, so
-neither a host round trip nor an [n, m] distance matrix is needed.
+cKDTree (reference src/utils.py:709-742); the JAX package sweeps every pair
+on the TPU. On the card it is kernel K3 (``kernels/radius_knn.py``): the refs
+binned into a grid of cells, each query testing the refs of the cells within
+reach by the same f32 expansion and keeping its k best in registers, so its
+answer is the brute-force sweep's and no [n, m] distance matrix is formed.
 """
 
 from __future__ import annotations

@@ -80,3 +80,18 @@ def test_kernel_wrapper_runs_plain_on_cpu():
     args = [torch.as_tensor(x) for x in uniform_instance()]
     for x, y in zip(sinkhorn_dense(*args, 0.05, 50), sinkhorn_dense_plain(*args, 0.05, 50)):
         assert torch.equal(x, y)
+
+
+def test_odd_shapes_match_jax():
+    """The plain version against JAX at a non-square, odd shape and at one
+    row, the shapes the card's kernel splits unevenly between its blocks."""
+    rng = np.random.default_rng(3)
+    for n, m in ((13, 37), (1, 29)):
+        cost = rng.uniform(0, 5, (n, m)).astype(np.float32)
+        a, b = np.full(n, 1.0 / n, np.float32), np.full(m, 1.0 / m, np.float32)
+        want = sj.sinkhorn_dense(cost, a, b, eps=0.05, n_iters=200)
+        got = st.sinkhorn_dense(cost, a, b, eps=0.05, n_iters=200, device="cpu")
+        for g_, w_ in zip(got, want):
+            assert g_.shape == w_.shape
+            np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(got[0].numpy().sum(0), b, rtol=1e-4)
