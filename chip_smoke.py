@@ -35,9 +35,15 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      solves after a warm-up) for both, rounds, us per round, the byte bound
      from the kernel's counters;
    - K1 at the Pallas microbenchmark's shape [12288, 8] and on the LUAD
-     window, K2 on that window's triangles: integer outputs and prices
-     bit-equal; median times over 60 runs, and K2's two launches alone
-     (torch.profiler); K2 also on the LUAD rows with tied regrets (every
+     window (cold, and warm from a solve's end state, where few bidders
+     bid), K2 on that window's triangles: integer outputs and prices
+     bit-equal; median times over 60 runs, K1's one launch and K2's two
+     alone (torch.profiler); K1 also at 40,000 bidders (more than its
+     cluster's 16,384 threads), at C = 13 (no compile-time copy) and on rows
+     whose valid columns all tie in cost and price (every price +0.0 or
+     -0.0), with rows all invalid, the best value at the first and last
+     column, no-match ties and signed zeros; K2 also on the LUAD rows with
+     tied regrets (every
      column of a row at one cost, zero prices: the first minimum decides)
      and on a random window with C = 40 (two sweeps of a warp's lanes),
      bit-equal;
@@ -89,7 +95,10 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
      the plain version. Each kernel's time alone (torch.profiler, median of
      20 launches) and its wrapper call's (CUDA events, median);
    - K9 ``bid_compute`` at [12288, 8] and [12288, 24] on the
-     microbenchmark's instance: bit-equal to its plain version;
+     microbenchmark's instance, its one launch alone (torch.profiler); and at
+     C = 8, 24 and 13 on 12,301 rows (not a multiple of a block's rows) with
+     K1's kinds of planted rows (ties across lane groups): bit-equal to its
+     plain version;
    - K10 ``sinkhorn_dense`` (one cooperative launch a call) through
      ``same_tpu_torch.ops.sinkhorn`` (no ``device``) at [4096, 4096], eps
      0.05, 200 iterations: finite, its largest error on f and g against a
@@ -186,9 +195,10 @@ ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
 phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
-K6, K7 and K8 were checked on (the LUAD window's round 0, problem and
-coordinates, phase 6's stack) to FILE for ``tear_round_bench.py`` and
-``knn_sinkhorn_bench.py``.
+K5, K6, K7 and K8 were checked on (the LUAD window's round 0, problem and
+coordinates, phase 6's stack) and the LUAD problem with its warm-start
+prices and phase 2 (a)'s end state to FILE for ``tear_round_bench.py``,
+``knn_sinkhorn_bench.py`` and ``bid_round_bench.py``.
 """
 
 from __future__ import annotations
@@ -402,8 +412,16 @@ def consistent_state(rng, slots, valid, C, S, frac_held=0.5):
     return assigned, owner
 
 
+# K1's names in a profiler trace: this tree's one launch, and the parent's
+# bid, resolve and settle launches.
+K1_KERNELS = ("auction_bid_kernel", "bid_kernel", "resolve_kernel", "settle_kernel")
+K9_KERNEL = "bid_compute_kernel"
+
+
 def compare_k1(tag, costs, slots, valid, nm, prices, assigned, owner, eps, rounds):
-    """Run ``rounds`` chained bidding rounds with K1 and with the twin."""
+    """Run ``rounds`` chained bidding rounds with K1 and with the twin, then
+    time one round from the given state: the wrapper call, the kernel alone
+    (one launch a call) and the twin."""
     import torch
 
     from same_tpu_torch.kernels.auction_bid import auction_bid, auction_bid_plain
@@ -420,7 +438,13 @@ def compare_k1(tag, costs, slots, valid, nm, prices, assigned, owner, eps, round
         err = max(err, float((k.newp - p.newp).abs().max()))
         st_k = (k.newp, k.new_assigned, k.new_owner)
         st_p = (p.newp, p.new_assigned, p.new_owner)
-    t_k = median_ms(lambda: auction_bid(costs, slots, valid, nm, prices, assigned, owner, eps))
+    def call():
+        return auction_bid(costs, slots, valid, nm, prices, assigned, owner, eps)
+
+    t_k = median_ms(call)
+    alone = kernel_stats(call, K1_KERNELS)
+    require(alone is not None and alone["launches"] == 1,
+            f"K1 {tag}: {stat(alone, 'launches')} device launches a call, expected 1")
     t_p = median_ms(lambda: auction_bid_plain(costs, slots, valid, nm, prices, assigned, owner, eps))
     n, C = costs.shape
     S1 = prices.shape[0]
@@ -431,13 +455,19 @@ def compare_k1(tag, costs, slots, valid, nm, prices, assigned, owner, eps, round
     nbytes = 9 * C * active + 4 * active + 4 * n + 8 * S1 + 4 * n + 8 * S1 + 4
     b_ms = bound_ms(nbytes)
     log(f"[phase 2] K1 {tag}: [n, C] = {list(costs.shape)}, S+1 = {S1}, "
-        f"{active} active bidders, {rounds} chained rounds bit-equal; "
-        f"kernel {t_k:.4f} ms, twin {t_p:.4f} ms (median of 60); "
+        f"{active} active bidders, {rounds} chained rounds bit-equal; kernel alone "
+        f"{fmt_stats(alone)}; wrapper call {t_k:.4f} ms, twin {t_p:.4f} ms (median of 60); "
         f"bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us")
-    return err, t_k, t_p, b_ms
+    return err, t_k, t_p, b_ms, alone
 
 
 def phase2_k1_random(device):
+    return compare_k1("random [12288, 8]", *k1_random_inputs(device), rounds=20)
+
+
+def k1_random_inputs(device):
+    """K1's arguments at the Pallas microbenchmark's shape: its random
+    instance and a random consistent state, eps 1.0."""
     import torch
 
     rng = np.random.default_rng(0)
@@ -454,11 +484,113 @@ def phase2_k1_random(device):
     def t(a, dtype):
         return torch.as_tensor(a, dtype=dtype).to(device)
 
-    return compare_k1(
-        "random [12288, 8]", t(costs, torch.float32), t(slots, torch.int32),
-        t(valid, torch.bool), t(nm, torch.float32), t(prices, torch.float32),
-        t(assigned, torch.int32), t(owner, torch.int32), 1.0, rounds=20,
-    )
+    return (t(costs, torch.float32), t(slots, torch.int32), t(valid, torch.bool),
+            t(nm, torch.float32), t(prices, torch.float32), t(assigned, torch.int32),
+            t(owner, torch.int32), 1.0)
+
+
+def planted_rows(rng, n, C, costs, valid):
+    """Plant, in place, rows where the order of the columns decides, n / 20
+    of each kind: (a) every column at one cost (with one price at every
+    column, the first valid column wins), (b) every column invalid, (c) the
+    best cost at the first and the last column (other chunks and lane
+    groups), (d) left for ``tie_no_match``, (e) costs of +0.0 and -0.0
+    (with prices of +0.0 and -0.0, values of +0.0 and -0.0 that tie).
+    Returns the rows of each kind."""
+    k = n // 20
+    rows = rng.permutation(n)
+    kinds = dict(zip("abcde", (rows[i * k:(i + 1) * k] for i in range(5))))
+    a, b, c, e = (kinds[x] for x in "abce")
+    costs[a] = costs[a, :1]
+    valid[b] = False
+    costs[c[:, None], [0, C - 1]] = np.float32(costs.min()) - np.float32(1.0)
+    valid[c[:, None], [0, C - 1]] = True
+    costs[e] = signed_zeros(rng, (len(e), C))
+    return kinds
+
+
+def signed_zeros(rng, shape):
+    return np.where(rng.random(shape) < 0.5, np.float32(0.0), np.float32(-0.0))
+
+
+def tie_no_match(rows, costs, p_slot, valid, nm):
+    """Set the no-match cost of ``rows`` so that -nm equals the row's best
+    value -(cost + price) (the column wins the tie); ``p_slot`` holds each
+    column's price."""
+    vals = np.where(valid[rows], -(costs[rows] + p_slot[rows]), np.float32(-np.inf))
+    best = vals.max(1)
+    nm[rows] = np.where(np.isfinite(best), -best, nm[rows]).astype(np.float32)
+
+
+def k1_problem(rng, n, C, S, flat):
+    """A random K1 problem ([n, C], S slots): costs uniform on [0, 200),
+    90 % of the columns valid (an invalid column holds slot S, as
+    build_assignment_problem writes), no-match cost 10,000, with
+    ``planted_rows`` and ``tie_no_match``. With ``flat`` every slot's price
+    is +0.0 or -0.0, so that rows (a) and (c) tie on value; else prices are
+    uniform on [0, 50)."""
+    costs = rng.uniform(0, 200, (n, C)).astype(np.float32)
+    slots = rng.integers(0, S, (n, C)).astype(np.int32)
+    valid = rng.random((n, C)) < 0.9
+    nm = np.full(n, 10000.0, np.float32)
+    prices = signed_zeros(rng, S + 1) if flat else rng.uniform(0, 50, S + 1).astype(np.float32)
+    prices[S] = 0.0
+    kinds = planted_rows(rng, n, C, costs, valid)
+    slots[~valid] = S
+    tie_no_match(kinds["d"], costs, prices[slots], valid, nm)
+    return costs, slots, valid, nm, prices
+
+
+def phase2_bid_cases(device, smi_line):
+    """K1 and K9 where the design's corners are: more bidders than the
+    cluster's threads, a width with no compile-time copy (C = 13), ties
+    across chunks and lane groups, all-invalid rows, no-match ties, signed
+    zeros, and (K9) n not a multiple of a block's rows. Each bit-equal to
+    its plain version."""
+    import torch
+
+    from same_tpu_torch.kernels.bid_compute import bid_compute, bid_compute_plain
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(device)
+
+    rng = np.random.default_rng(21)
+    out = {}
+    for tag, n, C, S, flat in (("40,000 bidders, C = 24", 40000, 24, 48000, False),
+                               ("C = 13", 12288, 13, 16384, False),
+                               ("ties, prices +-0.0, C = 24", 12288, 24, 16384, True),
+                               ("ties, prices +-0.0, C = 13", 12288, 13, 16384, True)):
+        costs, slots, valid, nm, prices = k1_problem(rng, n, C, S, flat)
+        assigned = np.full(n, -1, np.int32)
+        owner = np.full(S + 1, -1, np.int32)
+        out[tag] = compare_k1(
+            tag, t(costs, torch.float32), t(slots, torch.int32), t(valid, torch.bool),
+            t(nm, torch.float32), t(prices, torch.float32), t(assigned, torch.int32),
+            t(owner, torch.int32), 1.0, rounds=10)
+    for C in (8, 24, 13):
+        n = 12301  # not a multiple of a block's 64 (C = 8), 20 (24) or 32 (13) rows
+        costs = rng.uniform(0, 200, (n, C)).astype(np.float32)
+        p_slot = rng.uniform(0, 50, (n, C)).astype(np.float32)
+        valid = rng.random((n, C)) < 0.9
+        nm = np.full(n, 10000.0, np.float32)
+        kinds = planted_rows(rng, n, C, costs, valid)
+        a, c, e = kinds["a"], kinds["c"], kinds["e"]
+        p_slot[a] = p_slot[a, :1]
+        p_slot[c, C - 1] = p_slot[c, 0]
+        p_slot[e] = signed_zeros(rng, (len(e), C))
+        tie_no_match(kinds["d"], costs, p_slot, valid, nm)
+        args = (t(costs, torch.float32), t(p_slot, torch.float32), t(valid, torch.bool),
+                t(nm, torch.float32))
+        ck, ik = bid_compute(*args)
+        cp, ip = bid_compute_plain(*args)
+        torch.cuda.synchronize()
+        require_equal(f"K9 corners C={C} choice", ck, cp)
+        require_equal(f"K9 corners C={C} incr", ik, ip)
+        tie_first = int((ck[torch.as_tensor(kinds["a"], device=device)] < C).sum())
+        log(f"[phase 2] K9 corners [{n}, {C}]: choice and incr bit-equal to the plain version "
+            f"({int((ck == C).sum())} rows on no-match, {tie_first} tie rows on a column)")
+    log(f"[phase 2] K1 and K9 corner cases bit-equal; {smi_line}")
+    return out
 
 
 def phase2_window(pw, device):
@@ -495,7 +627,7 @@ def phase2_window(pw, device):
     log(f"[phase 2] auction solve on the window: {res.rounds} bidding rounds, "
         f"{time.time() - t0:.2f}s wall")
     # Late state: the solve's own end state, where few bidders still bid.
-    compare_k1(
+    k1_warm = compare_k1(
         "LUAD window, end of solve", pd.costs, pd.slots, pd.valid, pd.nm_cost,
         res.prices, res.choice, res.owner, eps, rounds=5,
     )
@@ -548,7 +680,7 @@ def phase2_window(pw, device):
     out_w, _ = compare_k2("C = 40", wide)
     log(f"[phase 2] K2 at [n, C] = [6000, 40], T = 12000 (C > 32): {int(out_w[0].sum())} "
         f"checked, {int(out_w[1].sum())} flipped; bit-equal")
-    return k1, (k2_err, t_k, t_p, b_ms, k2_alone), res
+    return {"cold": k1, "warm": k1_warm}, (k2_err, t_k, t_p, b_ms, k2_alone), res
 
 
 def compare_k2(tag, args):
@@ -1278,6 +1410,10 @@ def phase2_loop(pw, device, smi_line):
     out = {}
     res_a, out["a"] = compare_loop(
         "(a) LUAD window, cold", pd, pd.costs, prices0, sched, 128, smi_line=smi_line)
+    TEAR_STATES["luad"] = dict(
+        problem=(pd.costs, pd.slots, pd.valid, pd.nm_cost, pd.slot_rows, pd.slot_cols),
+        prices0=prices0, sched=sched, eps=float(np.float32(eps)), patience=128,
+        warm=(res_a.prices, res_a.choice, res_a.owner))
 
     rng = np.random.default_rng(1)
     n, C = prob.costs.shape
@@ -1321,9 +1457,11 @@ def phase2_loop(pw, device, smi_line):
 # ----------------------------------------------------------------------------
 
 # The inputs of K2, K7 and K8 at the LUAD window's round 0, of K6, K7 and K8
-# on phase 6's stack, of K4 on the LUAD problem and K3's LUAD coordinates,
-# kept for --save-tear-states (tear_round_bench.py and knn_sinkhorn_bench.py
-# time them). Filled by phase2_knn, phase2_sinkhorn, phase2_tear_round and
+# on phase 6's stack, of K4 on the LUAD problem, K3's LUAD coordinates, the
+# LUAD problem (with its warm-start prices and phase 2 (a)'s end state) and
+# K5's stack, kept for --save-tear-states (tear_round_bench.py,
+# knn_sinkhorn_bench.py and bid_round_bench.py time them). Filled by
+# phase2_knn, phase2_sinkhorn, phase2_loop, phase2_tear_round, phase6 and
 # batch_tear_round.
 TEAR_STATES = {}
 
@@ -1720,15 +1858,18 @@ def phase2_bid_compute(device, smi_line):
         require_equal(f"K9 C={C} incr", ik, ip)
         err = float((ik - ip).abs().max())
         t_k = median_ms(lambda: bid_compute(*args))
+        alone = kernel_stats(lambda: bid_compute(*args), K9_KERNEL)
+        require(alone is not None and alone["launches"] == 1,
+                f"K9 C={C}: {stat(alone, 'launches')} device launches a call, expected 1")
         t_p = median_ms(lambda: bid_compute_plain(*args))
         n = args[0].shape[0]
         nbytes = tensor_bytes(*args, ck, ik)
         b_ms = bound_ms(nbytes)
         log(f"[phase 2] K9 [{n}, {C}]: choice and incr bit-equal to the plain version "
-            f"({int((ck == C).sum())} rows on no-match); kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms (median of 60); bound {nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us; "
-            f"{smi_line}")
-        out[C] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms}
+            f"({int((ck == C).sum())} rows on no-match); kernel alone {fmt_stats(alone)}; "
+            f"wrapper call {t_k:.4f} ms, plain {t_p:.4f} ms (median of 60); bound "
+            f"{nbytes / 1e6:.3f} MB = {b_ms * 1e3:.3f} us; {smi_line}")
+        out[C] = {"err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "alone": alone}
     return out
 
 
@@ -2661,6 +2802,7 @@ def phase6(mc_ref, mc_align, seq, luad_pw, device, smi_line):
     args = (st["costs"], st["slots"], st["valid"], st["nm"], zeros, sched, budget)
     kw = dict(slot_rows=st["slot_rows"], slot_cols=st["slot_cols"], obj_patience=128,
               obj_tol=tol)
+    TEAR_STATES["k5"] = dict(args=args, kw=kw)
     # The plain version on the same inputs, once: held to K5, then its time.
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3043,12 +3185,19 @@ def save_tear_states(path):
     import torch
 
     def host(x):
-        return tuple(t.cpu() for t in x) if isinstance(x, tuple) else x
+        if isinstance(x, torch.Tensor):
+            return x.cpu()
+        if isinstance(x, tuple):
+            return tuple(host(t) for t in x)
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x
 
     states = {name: {k: host(v) for k, v in st.items()} for name, st in TEAR_STATES.items()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(states, path)
-    log(f"[states] K2, K3, K4, K6, K7 and K8 inputs ({', '.join(states)}) saved to {path}")
+    log(f"[states] K2, K3, K4, K6, K7 and K8 inputs, the LUAD problem and K5's stack "
+        f"({', '.join(states)}) saved to {path}")
 
 
 def main():
@@ -3068,8 +3217,10 @@ def main():
     ap.add_argument("--save-tear-states", metavar="FILE", default=None,
                     help="save the inputs of K2, K7 and K8 at the LUAD window's round 0, "
                          "of K6, K7 and K8 on phase 6's stack, of K4 on the LUAD "
-                         "problem and K3's LUAD coordinates to FILE, for "
-                         "tear_round_bench.py and knn_sinkhorn_bench.py")
+                         "problem, K3's LUAD coordinates, the LUAD problem with its "
+                         "warm-start prices and phase 2 (a)'s end state, and K5's stack "
+                         "at phase 6 (a) to FILE, for tear_round_bench.py, "
+                         "knn_sinkhorn_bench.py and bid_round_bench.py")
     args = ap.parse_args()
 
     import torch
@@ -3108,6 +3259,7 @@ def main():
         return 2
     k1_rand = phase2_k1_random(device)
     k1_win, k2_win, first_solve = phase2_window(pw, device)
+    k1_cases = phase2_bid_cases(device, smi_line)
     tear = phase2_tear_round(pw, first_solve, device, smi_line)
     k9 = phase2_bid_compute(device, smi_line)
     k10 = phase2_sinkhorn_dense(device, smi_line)
@@ -3157,11 +3309,16 @@ def main():
             "source": "same_tpu_torch/csrc/auction_bid.cu",
             "replaces": "same_tpu/solver/auction.py:256",
             "launches": summary["launches"]["auction_bid"],
-            "max_abs_err": max(k1_rand[0], k1_win[0]),
-            "ms": k1_win[1], "plain_ms": k1_win[2], "bound_ms": k1_win[3],
-            "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": max(c[0] for c in (k1_rand, *k1_win.values(), *k1_cases.values())),
+            "ms": k1_win["cold"][1], "plain_ms": k1_win["cold"][2],
+            "bound_ms": k1_win["cold"][3], "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": stat(k1_win["cold"][4], "ms"),
+            "device_launches_a_call": stat(k1_win["cold"][4], "launches"),
+            "warm": {"ms": k1_win["warm"][1], "kernel_ms": stat(k1_win["warm"][4], "ms"),
+                     "bound_ms": k1_win["warm"][3]},
             "ms_bench_shape": k1_rand[1], "plain_ms_bench_shape": k1_rand[2],
-            "bound_ms_bench_shape": k1_rand[3],
+            "bound_ms_bench_shape": k1_rand[3], "kernel_ms_bench_shape": stat(k1_rand[4], "ms"),
+            "kernel_ms_cases": {tag: stat(c[4], "ms") for tag, c in k1_cases.items()},
         },
         {
             "name": "tear_metrics", "route": "cuda",
@@ -3278,8 +3435,10 @@ def main():
             "max_abs_err": max(c["err"] for c in k9.values()),
             "ms": k9[8]["ms"], "plain_ms": k9[8]["plain_ms"], "bound_ms": k9[8]["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": stat(k9[8]["alone"], "ms"),
+            "device_launches_a_call": stat(k9[8]["alone"], "launches"),
             "ms_c24": k9[24]["ms"], "plain_ms_c24": k9[24]["plain_ms"],
-            "bound_ms_c24": k9[24]["bound_ms"],
+            "bound_ms_c24": k9[24]["bound_ms"], "kernel_ms_c24": stat(k9[24]["alone"], "ms"),
         },
         {
             "name": "sinkhorn_dense", "route": "cuda",

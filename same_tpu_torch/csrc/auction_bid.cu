@@ -1,9 +1,11 @@
-// K1 `auction_bid`: one bidding round of the epsilon-scaling auction.
+// K1 `auction_bid`: one bidding round of the epsilon-scaling auction, in ONE
+// launch of one thread-block cluster.
 //
 // This single-round launch is the test entry: chip_smoke.py holds it against
-// its plain version at the Pallas bench shape and on the LUAD window. The
-// main path runs the same __device__ bodies (auction_round.cuh) inside the
-// persistent solve of auction_loop.cu, one launch per auction solve.
+// its plain version at the Pallas bench shape and on the LUAD window. It
+// runs the main path's own phase code: the bid and resolve phases and the
+// settle body of auction_round.cuh, which the persistent solve of
+// auction_loop.cu runs each bidding round, on the same cluster shape.
 //
 // Replaces
 //   - examples/bench_pallas.py:98-139 (`main.kernel`, the repo's only Pallas
@@ -15,14 +17,22 @@
 //     the new owners.
 //
 // What bounds it on the H100: bytes, not arithmetic. A round reads the
-// [n, C] costs (f32), slots (i32) and valid (u8) rows and gathers
-// prices[slots] — 9 bytes plus one random 4-byte gather per entry, ~2.6 MB at
-// the LUAD window's n = 12288, C = 24, well under 2 us at HBM bandwidth. On
-// the TPU the [n, C] price gather alone took 74 % of the round
-// (ARCHITECTURE.md:213-221). At this size the launches themselves (three per
-// round) cost more than the bytes.
+// [n, C] costs (f32), slots (i32) and valid (u8) rows of the active bidders
+// and gathers prices[slots] — 9 bytes plus one random 4-byte gather per
+// entry, ~3.3 MB at the LUAD window's n = 12288, C = 24, about 1 us at HBM
+// bandwidth. On the TPU the [n, C] price gather alone took 74 % of the
+// round (ARCHITECTURE.md:213-221). At this size a launch costs more than the
+// bytes, and inside the round the latency of each row's loads and gathers
+// and of the barriers between the phases.
 //
 // What the design does about it:
+//   - one launch: one cluster of kClusterBlocks x kThreads threads (the
+//     solve's) runs bid | resolve | settle, the phases separated by two
+//     hardware cluster barriers; each phase loops cluster-stride over its
+//     bidders or slots, so any n and S work;
+//   - each active bidder reads its row a chunk of columns at a time, all
+//     loads of a chunk first, then its price gathers together (row_top2,
+//     with 16-byte loads at C = 24 and 8);
 //   - only ACTIVE bidders (unassigned or on no-match) touch their row: late
 //     in a solve almost every bidder holds a slot, so a round reads little
 //     more than the [n] assignment vector;
@@ -36,14 +46,13 @@
 //     bid that rounds to the old price (core.py:366-378) still wins, as
 //     `bid >= newp[tgt]` lets it;
 //   - the per-slot decode resets its key to 0, so the [S+1] key workspace
-//     needs no clearing launch between rounds.
+//     needs no clearing between rounds;
+//   - the `moved` flag stays on the device: zeroed before the first barrier,
+//     raised after it by any thread whose bidders bid or changed assignment
+//     (an eviction or a win implies a bid, auction.py:293-295).
 //
-// Launches: (a) bid, one thread per bidder; (b) resolve, one thread per slot:
-// new price, new owner, eviction of the previous owner; (c) settle, one
-// thread per bidder: the winners take their column (after the evictions, as
-// in the JAX round) and the device-side `moved` flag is raised without a host
-// sync. All arithmetic is f32 with explicit round-to-nearest intrinsics, so
-// nvcc cannot contract or reorder -(cost + p) or v1 - v2 + eps.
+// All arithmetic is f32 with explicit round-to-nearest intrinsics, so nvcc
+// cannot contract or reorder -(cost + p) or v1 - v2 + eps.
 
 #include "auction_round.cuh"
 
@@ -51,56 +60,43 @@ namespace {
 
 using namespace same_auction;
 
-constexpr int kThreads = 256;
+struct BidArgs {
+  RoundProblem p;
+  const float* prices;    // [S+1]
+  const int* assigned;    // [n]
+  const int* owner;       // [S+1]
+  float eps;
+  int* new_assigned;      // [n]
+  int* new_owner;         // [S+1]
+  float* newp;            // [S+1]
+  int* moved;             // [1]
+  int* bid_col;           // [n] scratch
+  unsigned long long* keys;  // [S+1], zero on entry and on exit
+};
 
-__global__ void bid_kernel(const float* __restrict__ costs,
-                           const int* __restrict__ slots,
-                           const uint8_t* __restrict__ valid,
-                           const float* __restrict__ nm,
-                           const float* __restrict__ prices,
-                           const int* __restrict__ assigned, int n, int C,
-                           float eps, int* __restrict__ new_assigned,
-                           int* __restrict__ bid_col,
-                           unsigned long long* __restrict__ keys) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  int na;
-  bid_col[b] = bid_body(b, assigned[b], costs, slots, valid, nm, prices, n, C,
-                        eps, keys, &na);
-  new_assigned[b] = na;
-}
-
-__global__ void resolve_kernel(const float* __restrict__ prices,
-                               const int* __restrict__ owner, int n, int S,
-                               unsigned long long* __restrict__ keys,
-                               float* __restrict__ newp,
-                               int* __restrict__ new_owner,
-                               int* __restrict__ new_assigned,
-                               int* __restrict__ moved) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s == 0) *moved = 0;
-  if (s > S) return;
-  if (s == S) {
-    newp[S] = 0.0f;
-    new_owner[S] = -1;
-    return;
+__global__ void __launch_bounds__(kThreads, 1) auction_bid_kernel(BidArgs a) {
+  const int tid = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+  if (tid == 0) *a.moved = 0;
+  const BidShare bid = bid_phase<false>(a.p, tid, kStride, a.prices, a.eps, a.keys,
+                                        a.assigned, a.new_assigned, a.bid_col);
+  cluster_sync();
+  if (bid.moved) *a.moved = 1;
+  resolve_phase(a.p.n, a.p.S, tid, kStride, a.keys, a.prices, a.owner, a.newp, a.new_owner,
+                a.new_assigned);
+  cluster_sync();
+  for (int b = tid; b < a.p.n; b += kStride) {
+    settle_body(b, a.bid_col[b], ld_state(a.new_assigned + b), a.p.slots, a.new_owner, a.p.C,
+                a.new_assigned);
   }
-  resolve_body(s, n, keys, prices, owner, newp, new_owner, new_assigned);
 }
 
-__global__ void settle_kernel(const int* __restrict__ slots,
-                              const int* __restrict__ assigned,
-                              const int* __restrict__ bid_col,
-                              const int* __restrict__ new_owner, int n, int C,
-                              int* __restrict__ new_assigned,
-                              int* __restrict__ moved) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  int col = bid_col[b];
-  int na = settle_body(b, col, new_assigned[b], slots, new_owner, C,
-                       new_assigned);
-  // Any bid counts as movement (auction.py:293-295).
-  if (col >= 0 || na != assigned[b]) *moved = 1;
+// 0 when the current device holds one cluster of the kernel, else an error
+// code (fewest_clusters).
+int check_cluster() {
+  static int cached[64] = {0};
+  const void* const kernels[] = {reinterpret_cast<const void*>(auction_bid_kernel)};
+  int held = 0;
+  return fewest_clusters(kernels, cached, &held);
 }
 
 }  // namespace
@@ -112,20 +108,24 @@ extern "C" int same_auction_bid(const float* costs, const int* slots,
                                 float eps, int* new_assigned, int* new_owner,
                                 float* newp, int* moved, int* bid_col,
                                 unsigned long long* keys, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int gb = (n + kThreads - 1) / kThreads;
-  int gs = (S + 1 + kThreads - 1) / kThreads;
-  bid_kernel<<<gb, kThreads, 0, st>>>(costs, slots, valid, nm, prices,
-                                      assigned, n, C, eps, new_assigned,
-                                      bid_col, keys);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  resolve_kernel<<<gs, kThreads, 0, st>>>(prices, owner, n, S, keys, newp,
-                                          new_owner, new_assigned, moved);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  settle_kernel<<<gb, kThreads, 0, st>>>(slots, assigned, bid_col, new_owner,
-                                         n, C, new_assigned, moved);
+  const int err = check_cluster();
+  if (err != 0) return err;
+  BidArgs a;
+  a.p = RoundProblem{costs, slots, valid, nm, n, C, S};
+  a.prices = prices;
+  a.assigned = assigned;
+  a.owner = owner;
+  a.eps = eps;
+  a.new_assigned = new_assigned;
+  a.new_owner = new_owner;
+  a.newp = newp;
+  a.moved = moved;
+  a.bid_col = bid_col;
+  a.keys = keys;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(1, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, auction_bid_kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,11 +26,12 @@
 // resolved slots, rows the boundary releases read) give chip_smoke.py this
 // count per solve. What bounds a round is latency: the barrier between its
 // phases (three per bidding round, 18 more on a boundary round) and, inside
-// the bid, each active bidder's chain of C + 1 dependent loads (valid flag,
-// slot, price) in row_top2. On an H100 (700 W) the software grid barrier of
-// the cooperative design before this one took 1.89 us at 113 blocks, the
-// cluster barrier takes 0.76 us, and the bid phase is about half of a
-// round (the kernel's phase_cycles; PERF.md, section 5).
+// the bid, each active bidder's loads of its row and its prices in row_top2
+// (issued a chunk of 8 columns at a time, auction_round.cuh). On an H100
+// (700 W) the software grid barrier of the cooperative design before this
+// one took 1.89 us at 113 blocks, the cluster barrier takes 0.76 us, and
+// the bid phase was about half of a round (the kernel's phase_cycles;
+// PERF.md, section 5).
 //
 // What the design does about it:
 //   - one cluster a solve: kClusterBlocks blocks of kThreads threads on
@@ -56,7 +57,8 @@
 //     bodies, shared with K1, read it that way. Every phase loops
 //     cluster-stride over its rows or slots, so any window size works;
 //   - the main path's row widths (C = 24 and 8) get a copy of the loops over
-//     rows with C a compile-time constant (at_width).
+//     rows with C a compile-time constant and 16-byte row loads (at_width);
+//   - the bid and resolve phases are auction_round.cuh's, which K1 runs too.
 //
 // Semantics kept exactly:
 //   - the boundary step's person-side conflict (scatter-max on surplus, then
@@ -109,10 +111,8 @@ namespace {
 
 using namespace same_auction;
 
-// The cluster: kClusterBlocks blocks of kThreads threads a solve.
-constexpr int kThreads = 1024;
-constexpr int kClusterBlocks = 16;
-constexpr int kStride = kThreads * kClusterBlocks;
+// The cluster (kClusterBlocks blocks of kThreads threads a solve) is
+// auction_round.cuh's, shared with K1.
 // Rows a chunk of the objective sum, and leaves of each of its trees.
 constexpr int kChunk = 256;
 static_assert(kThreads % kChunk == 0, "a block holds whole chunks");
@@ -164,35 +164,6 @@ struct LoopArgs {
 
 __host__ __device__ __forceinline__ int chunks(int n) {
   return (n + kChunk - 1) / kChunk;
-}
-
-// The hardware barrier of the cluster: every thread of its blocks arrives.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Calls f with the row width C, as a compile-time constant where C is one
-// the main path meets: 24 (knn 8 x ref match multiplier 3, the LUAD and
-// grid windows) or 8. The bodies' column loop (row_top2: C + 1 values with a
-// dependent price gather each) bounds a bidding round; with a constant trip
-// count the compiler unrolls it and issues several columns' loads at once,
-// with the same arithmetic in the same order. Any other C runs the loop as
-// written.
-template <int W>
-struct Width {
-  __device__ constexpr operator int() const { return W; }
-};
-
-template <class F>
-__device__ __forceinline__ void at_width(int C, F&& f) {
-  if (C == 24) {
-    f(Width<24>{});
-  } else if (C == 8) {
-    f(Width<8>{});
-  } else {
-    f(C);
-  }
 }
 
 // Adds each thread's v to a device counter: one atomic per warp. Every
@@ -272,14 +243,14 @@ __device__ __forceinline__ void boundary_release(const LoopArgs& a, float eps,
                                                  int tid) {
   const int n = a.n, S = a.S;
   unsigned int n_held = 0;
-  at_width(a.C, [&](auto width) {
+  at_width(a.C, vector_rows(a.costs, a.slots, a.valid), [&](auto width) {
     const int C = width;
     for (int b = tid; b < n; b += kStride) {
       int as = ld_state(a.assigned + b);
       if (as < 0 || as >= C) continue;
       ++n_held;
       const size_t row = static_cast<size_t>(b) * C;
-      Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices, row, C);
+      Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices, row, width);
       float held = col_value(a.costs, a.slots, a.valid, a.prices, row + as);
       if (held < __fsub_rn(t.best, eps)) {
         a.assigned[b] = -1;
@@ -306,11 +277,11 @@ __device__ __forceinline__ void reverse_once(const LoopArgs& a, float eps,
                                              int tid, int* moved_flag) {
   const int n = a.n, C = a.C, S = a.S, Ps = a.Ps;
   // (1) Per bidder: top-2 at the current prices.
-  at_width(C, [&](auto width) {
+  at_width(C, vector_rows(a.costs, a.slots, a.valid), [&](auto width) {
     const int W = width;
     for (int b = tid; b < n; b += kStride) {
       Top2 t = row_top2(a.costs, a.slots, a.valid, a.nm[b], a.prices,
-                        static_cast<size_t>(b) * W, W);
+                        static_cast<size_t>(b) * W, width);
       a.top_best[b] = t.best;
       a.top_second[b] = isfinite(t.second) ? t.second : t.best;
       a.top_col[b] = t.col;
@@ -467,41 +438,20 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int rank) {
       lap(kBoundary);
     }
 
-    // Bid.
-    bool bid_moved = false;
-    unsigned int n_active = 0;
-    at_width(C, [&](auto width) {
-      const int W = width;
-      for (int b = tid; b < n; b += kStride) {
-        int as = ld_state(a.assigned + b);
-        int na;
-        int col = bid_body(b, as, a.costs, a.slots, a.valid, a.nm, a.prices, n,
-                           W, eps, a.keys, &na);
-        n_active += (as < 0 || as == W) ? 1u : 0u;
-        a.bid_col[b] = col;
-        if (na != as) a.assigned[b] = na;
-        bid_moved = bid_moved || col >= 0 || na != as;
-      }
-    });
-    if (bid_moved) *moved_flag = 1;
-    count_add(a.active, n_active);
+    // Bid, in place on the working state.
+    const BidShare bid = bid_phase<true>(RoundProblem{a.costs, a.slots, a.valid, a.nm, n, C, S},
+                                         tid, kStride, a.prices, eps, a.keys, a.assigned,
+                                         a.assigned, a.bid_col);
+    if (bid.moved) *moved_flag = 1;
+    count_add(a.active, bid.active);
     cluster_sync();
     lap(kBid);
 
     // Resolve; the next round's flag is zeroed here (its last reader, the
     // control phase of the previous round, is behind the bid barrier).
     if (tid == 0) a.moved[par ^ 1] = 0;
-    unsigned int n_resolved = 0;
-    for (int s = tid; s <= S; s += kStride) {
-      if (s == S) {
-        a.prices[S] = 0.0f;
-        a.owner[S] = -1;
-      } else if (resolve_body(s, n, a.keys, a.prices, a.owner, a.prices,
-                              a.owner, a.assigned)) {
-        ++n_resolved;
-      }
-    }
-    count_add(a.resolved, n_resolved);
+    count_add(a.resolved, resolve_phase(n, S, tid, kStride, a.keys, a.prices, a.owner,
+                                        a.prices, a.owner, a.assigned));
     cluster_sync();
     lap(kResolve);
 
@@ -544,7 +494,9 @@ __device__ __forceinline__ void solve(const LoopArgs& a, int rank) {
       cur_obj = chunk_sum(v, red);
     }
     if (threadIdx.x == 0) {
-      Control c = ctl;
+      // The control state read again (only this thread writes it, below):
+      // the round's copy would stay live in registers across its phases.
+      Control c = s_ctl;
       if (a.trace != nullptr && rank == 0) {
         a.trace[2 * c.it] = moved ? 1.0f : 0.0f;
         a.trace[2 * c.it + 1] = cur_obj;
@@ -738,55 +690,13 @@ auction_loop_batch_kernel(BatchArgs ba) {
   solve(s_args, static_cast<int>(blockIdx.x) - k * kClusterBlocks);
 }
 
-cudaLaunchConfig_t cluster_config(int clusters, cudaStream_t st,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * kClusterBlocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kClusterBlocks;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 // Clusters of the solve's shape the current device holds at once, for the
-// kernel with fewer (queried once per device into `cached`; a cluster of
-// more than 8 blocks is allowed first). An error code, or
-// cudaErrorLaunchOutOfResources when the device holds none.
+// kernel with fewer (fewest_clusters).
 int max_clusters(int* out) {
   static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 0 && dev < 64 && cached[dev] > 0) {
-    *out = cached[dev];
-    return 0;
-  }
-  const void* kernels[] = {reinterpret_cast<const void*>(auction_loop_kernel),
-                           reinterpret_cast<const void*>(auction_loop_batch_kernel)};
-  int fewest = 0;
-  for (int i = 0; i < 2; ++i) {
-    if (kClusterBlocks > 8) {
-      err = cudaFuncSetAttribute(kernels[i],
-                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg = cluster_config(1, nullptr, &attr);
-    int held = 0;
-    err = cudaOccupancyMaxActiveClusters(&held, kernels[i], &cfg);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fewest = i == 0 || held < fewest ? held : fewest;
-  }
-  if (fewest < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  if (dev >= 0 && dev < 64) cached[dev] = fewest;
-  *out = fewest;
-  return 0;
+  const void* const kernels[] = {reinterpret_cast<const void*>(auction_loop_kernel),
+                                 reinterpret_cast<const void*>(auction_loop_batch_kernel)};
+  return fewest_clusters(kernels, cached, out);
 }
 
 }  // namespace

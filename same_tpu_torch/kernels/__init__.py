@@ -3,7 +3,7 @@
 ``auction_loop`` is one whole auction solve as one persistent launch (the
 main path), ``auction_loop_batch`` (K5) the same for a batch of windows in
 one launch; ``auction_bid`` (K1) is a single bidding round on the same
-device bodies, kept as the test entry; ``tear_metrics`` (K2) is the tear
+phase code, kept as the test entry; ``tear_metrics`` (K2) is the tear
 round's flip test and cheapest-to-move vertex, ``tear_metrics_batch`` (K6)
 the same for a batch of windows; ``radius_knn`` (K3) is the
 device kNN over a grid of cells and ``sinkhorn_sparse`` (K4) the Sinkhorn warm start's

@@ -6,11 +6,13 @@
 round's new assignment, owners and prices, and a one-element int32 ``moved``
 flag (any assignment change or any bid) that stays on the device.
 
-The single-round launch is the test entry (``chip_smoke.py`` holds it
-against its plain version): the main path runs the same ``__device__``
-bodies (``csrc/auction_round.cuh``) inside ``auction_loop``'s persistent
-kernel, one launch per auction solve. ``auction_bid_plain`` is the bidding
-round of ``auction_loop_plain``.
+K1 is one launch of one thread-block cluster (``auction_loop``'s 16 x
+1,024 threads): the bid phase, a cluster barrier, the resolve phase, a
+barrier, the settle. The single-round launch is the test entry
+(``chip_smoke.py`` holds it against its plain version): the main path runs
+the same phase code (``csrc/auction_round.cuh``) inside ``auction_loop``'s
+persistent kernel, one launch per auction solve. ``auction_bid_plain`` is
+the bidding round of ``auction_loop_plain``.
 """
 
 from __future__ import annotations
@@ -125,7 +127,9 @@ def _lib():
 
 
 def auction_bid(costs, slots, valid, nm, prices, assigned, owner, eps) -> BidRound:
-    """One bidding round: K1 on CUDA tensors, the plain twin on CPU tensors."""
+    """One bidding round: K1 on CUDA tensors (one launch), the plain twin on
+    CPU tensors. Every slot id must lie in [0, S]: the kernel gathers the
+    price of every column, valid or not, as the plain round does."""
     if costs.device.type == "cpu":
         return auction_bid_plain(costs, slots, valid, nm, prices, assigned, owner, eps)
     if costs.device.type != "cuda":

@@ -363,7 +363,10 @@ def auction_loop(
     obj_patience=None, obj_tol=None, obj_band=None, trace=None, phase_cycles=None,
 ) -> AuctionResult:
     """One auction solve: the persistent kernel on CUDA tensors, the plain
-    loop on CPU tensors. Arguments as :func:`auction_loop_plain`.
+    loop on CPU tensors. Arguments as :func:`auction_loop_plain`; every slot
+    id must lie in [0, S] (``build_assignment_problem`` writes S into invalid
+    columns): the kernel gathers the price of every column, valid or not, as
+    the plain loop does.
 
     ``trace`` and ``phase_cycles`` are for diagnosis on the card only:
     ``trace``, a float32 tensor of ``[max_rounds, 2]``, receives each
