@@ -182,6 +182,28 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    batch's budget and schedule length: identical incumbents before repair
    and cut registries. Times of K5 (beside the solo launches) and K6, their
    plain versions and their byte bounds.
+8. The multi-process window grid and the root entry points' twins:
+   (a) ``same_tpu_torch.graft_entry.entry()``: its ``fn`` on the card's
+   example arguments gives the same ``choice`` as on CPU tensors (one
+   ``auction_loop`` launch); ``dryrun_multichip(4)`` on the card (four 6 x 6
+   windows over ``[cuda:0] * 4``, K5 and K6 launched) prints the same line as
+   ``dryrun_multichip(4, device="cpu")``: matches, flips, tear rounds and
+   cuts. (b) Phase 4's tissue through two ranks, each this script in its rank
+   mode (``--grid-rank``, a new ``sys.executable`` process; one intra-op
+   thread each, as torchrun sets it), meeting over gloo at a free localhost
+   port (``parallel.distributed.init_distributed``, a group timeout of 240
+   s): each runs ``sliding_window_matching(host_shard=True)`` with phase 4's
+   sequential parameters and no ``device`` (so both solve on ``cuda:0``), the
+   frames are gathered to rank 0 (``gather_matches``), which merges them.
+   Rank r must own the r-th block of phase 4's sequential window ids (the
+   blocks disjoint, together all of them), hold each of its windows to what
+   phase 4 holds a window to (``auction_loop``, K2, K7 and K8 launched in its
+   own process), and rank 1 must receive nothing; the merged frame is held
+   to phase 4's sequential run as phase 6 (f) holds the mesh grid. A rank
+   that fails, or outlives 420 s, fails the phase (its output's tail
+   printed; the other rank killed). Prints each rank's wall, ``device_time``
+   and repair sums, and the two-rank grid wall from spawn to the merged frame
+   beside phase 4's sequential and two-in-flight walls.
 5. Only with ``--synthetic`` (its repair runs for minutes at the default
    budget of a window this small): the paper's synthetic tissue (seed 8899,
    372 query cells, the host separation loop for windows under 512 points)
@@ -194,7 +216,7 @@ the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
-phases 4 and 6. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
+phases 4, 6 and 8. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
 K5, K6, K7 and K8 were checked on (the LUAD window's round 0, problem and
 coordinates, phase 6's stack) and the LUAD problem with its warm-start
 prices and phase 2 (a)'s end state to FILE for ``tear_round_bench.py``,
@@ -2416,8 +2438,22 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
     log(f"[phase 4] {label}: grid wall {wall:.2f}s, {len(recs)} windows {wids}, "
         f"{len(matches)} rows, {len(merged)} after the merge; repair budget "
         f"{GRID_REPAIR_BUDGET_S:g}s a window; launches {json.dumps(launches)}")
+    log_windows("[phase 4]", recs)
+    require(4 <= len(recs) <= 6, f"{label}: {len(recs)} solvable windows, expected 4 to 6")
+    require(len(wids) == len(recs), f"{label}: {len(wids)} window ids for {len(recs)} windows")
+    check_windows(label, recs, launches, device_knn)
+    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
+        require(merged[col].is_unique, f"{label}: {col} repeats in the merged frame")
+    require(len(merged) >= 0.9 * matches["Aligned_metacell_id"].nunique(),
+            f"{label}: the merge kept {len(merged)} of {len(matches)} rows")
+    return {"matches": matches, "merged": merged, "records": recs, "wall": wall,
+            "window_ids": wids, "launches": launches}
+
+
+def log_windows(tag, recs):
+    """One line a window of GridSpy's records."""
     for rec in recs:
-        log(f"[phase 4]   n {rec['n']} (in {rec['n_mov_in']} / {rec['n_ref_in']} ref), "
+        log(f"{tag}   n {rec['n']} (in {rec['n_mov_in']} / {rec['n_ref_in']} ref), "
             f"[n_pad, C] {rec['shape']}, T {rec['T']}: tear rounds {rec['tear_rounds']}, "
             f"auction rounds {rec['auction_rounds']}, matches {rec['matches']}, flip "
             f"{rec['flip_fraction']:.4f}, objective {rec['objective']:.1f} (lower bound "
@@ -2426,8 +2462,10 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
             f"{GRID_REPAIR_BUDGET_S:g}s), wall {rec['wall']:.2f}s; warm start "
             f"{rec['warm_start']}; launches {json.dumps(rec['launches'])}")
 
-    require(4 <= len(recs) <= 6, f"{label}: {len(recs)} solvable windows, expected 4 to 6")
-    require(len(wids) == len(recs), f"{label}: {len(wids)} window ids for {len(recs)} windows")
+
+def check_windows(label, recs, launches, device_knn):
+    """What a grid run's windows must have done, from GridSpy's records and
+    the kernels' counts of the process that ran them (from 0 before the run)."""
     require(launches["auction_bid"] == 0, f"{label}: the single-round K1 ran in the grid")
     for name in ("auction_loop_batch", "tear_metrics_batch"):
         require(launches[name] == 0, f"{label}: the batched {name} ran without a mesh")
@@ -2461,12 +2499,6 @@ def grid_run(mc_ref, mc_align, label, solver, device_knn):
                 f"{what}: objective {rec['objective']} against lower bound {rec['obj_lb']}")
         require(0 < rec["matches"] <= rec["n"] and 0.0 <= rec["flip_fraction"] <= 1.0,
                 f"{what}: {rec['matches']} matches, flip fraction {rec['flip_fraction']}")
-    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
-        require(merged[col].is_unique, f"{label}: {col} repeats in the merged frame")
-    require(len(merged) >= 0.9 * matches["Aligned_metacell_id"].nunique(),
-            f"{label}: the merge kept {len(merged)} of {len(matches)} rows")
-    return {"matches": matches, "merged": merged, "records": recs, "wall": wall,
-            "window_ids": wids, "launches": launches}
 
 
 def grid_tissue(smi_line):
@@ -2627,20 +2659,7 @@ def mesh_grid_run(mc_ref, mc_align, seq, smi_line):
             "mesh grid: a solo auction_loop ran during separation without an eps retry")
     require(launches["auction_bid"] == 0, "mesh grid: the single-round K1 ran")
 
-    # Against phase 4's sequential run.
-    require(sorted(wids) == sorted(seq["window_ids"]),
-            f"mesh grid: window ids {wids} vs sequential {seq['window_ids']}")
-    pairs = set(zip(merged["Aligned_metacell_id"], merged["Ref_metacell_id"]))
-    pairs_seq = set(zip(seq["merged"]["Aligned_metacell_id"], seq["merged"]["Ref_metacell_id"]))
-    denom = max(len(pairs), len(pairs_seq), 1)
-    agree = len(pairs & pairs_seq) / denom
-    log(f"[phase 6] (f) merged matches {len(merged)} vs sequential {len(seq['merged'])}; "
-        f"merged-pair agreement {agree:.4f} (gate 0.90)")
-    require(abs(len(merged) - len(seq["merged"])) <= 0.01 * denom + 2,
-            f"mesh grid: {len(merged)} merged matches vs {len(seq['merged'])} sequential")
-    require(agree >= 0.90, f"mesh grid: merged-pair agreement {agree:.4f} < 0.90")
-    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
-        require(merged[col].is_unique, f"mesh grid: {col} repeats in the merged frame")
+    agree = hold_to_sequential("[phase 6] (f)", "mesh grid", wids, merged, seq)
 
     seq_by_size = {(r["n_mov_in"], r["n_ref_in"]): r for r in seq["records"]}
     recs = []
@@ -2680,6 +2699,28 @@ def mesh_grid_run(mc_ref, mc_align, seq, smi_line):
         f"repair sum {sum(r['repair'] for r in recs):.2f}s vs {seq_rep:.2f}s")
     return {"wall": wall, "launches": launches, "spy": spy, "records": recs,
             "batch_device_time": batch_dev, "agreement": agree, "round_split_ms": split}
+
+
+def hold_to_sequential(tag, label, wids, merged, seq):
+    """A grid run whose repairs differ from phase 4's sequential run (each
+    wall-clock budgeted, ROADMAP C4) held to it as tests/test_windows_sharded.py
+    holds the JAX package's: the same window ids, one row per id after the
+    merge, merged matches within 1 % + 2 and merged-pair agreement >= 0.90.
+    Returns the agreement."""
+    require(sorted(wids) == sorted(seq["window_ids"]),
+            f"{label}: window ids {wids} vs sequential {seq['window_ids']}")
+    pairs = set(zip(merged["Aligned_metacell_id"], merged["Ref_metacell_id"]))
+    pairs_seq = set(zip(seq["merged"]["Aligned_metacell_id"], seq["merged"]["Ref_metacell_id"]))
+    denom = max(len(pairs), len(pairs_seq), 1)
+    agree = len(pairs & pairs_seq) / denom
+    log(f"{tag} merged matches {len(merged)} vs sequential {len(seq['merged'])}; "
+        f"merged-pair agreement {agree:.4f} (gate 0.90)")
+    require(abs(len(merged) - len(seq["merged"])) <= 0.01 * denom + 2,
+            f"{label}: {len(merged)} merged matches vs {len(seq['merged'])} sequential")
+    require(agree >= 0.90, f"{label}: merged-pair agreement {agree:.4f} < 0.90")
+    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
+        require(merged[col].is_unique, f"{label}: {col} repeats in the merged frame")
+    return agree
 
 
 def stacked(pws, device):
@@ -3067,6 +3108,248 @@ def batch_tear_round(pws, k6_args, k6_out, choice, T_list, T_pad, device, smi_li
 
 
 # ----------------------------------------------------------------------------
+# Phase 8: the multi-process window grid and the entry-point twins
+# ----------------------------------------------------------------------------
+
+# Two ranks on the one card, each in its own process (its own CUDA context,
+# HOST_LOCK and interpreter lock), meeting over gloo at a localhost port.
+# Each solves its block of phase 4's windows one after the other, with phase
+# 4's sequential parameters.
+GRID_RANKS = 2
+GRID_RANK_SOLVER = GRID_RUNS[0][1]
+RANK_GROUP_TIMEOUT_S = 240.0
+RANK_TIMEOUT_S = 420.0
+RANK_RECORD_KEYS = ("n", "n_mov_in", "n_ref_in", "shape", "T", "tear_rounds",
+                    "auction_rounds", "matches", "flip_fraction", "objective", "obj_lb",
+                    "device_time", "separation", "repair", "wall", "launches")
+
+
+def phase8_twins(smi_line):
+    """(a) ``graft_entry.entry()`` on the card against the same ``fn`` on CPU
+    tensors; ``dryrun_multichip(4)`` on the card (four windows over
+    ``[cuda:0] * 4``) against ``dryrun_multichip(4, device="cpu")``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from same_tpu_torch import graft_entry, kernels
+
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    fn, args = graft_entry.entry()
+    require(all(a.device.type == "cuda" for a in args), "entry(): example args off the card")
+    for f in fns.values():
+        f.launches = 0
+    choice = fn(*args)
+    torch.cuda.synchronize()
+    require(fns["auction_loop"].launches == 1, "entry(): auction_loop did not launch")
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    require_equal("entry() choice, card vs CPU", choice.cpu(), fn_cpu(*args_cpu))
+    log(f"[phase 8] (a) entry(): choice of {choice.shape[0]} bidders on the card equals the "
+        f"CPU run's ({int((choice < args[0].shape[1]).sum())} matched)")
+
+    lines, launches = {}, {}
+    for where, device in (("card", None), ("CPU", "cpu")):
+        for f in fns.values():
+            f.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            graft_entry.dryrun_multichip(4, device=device)
+        lines[where] = buf.getvalue().strip()
+        launches[where] = {name: f.launches for name, f in fns.items()}
+    log(f"[phase 8] (a) dryrun_multichip(4) on the card: {lines['card']!r}; launches "
+        f"{json.dumps(launches['card'])}; {smi_line}")
+    require(lines["card"] == lines["CPU"],
+            f"dryrun_multichip(4): card {lines['card']!r} vs CPU {lines['CPU']!r}")
+    require(launches["card"]["auction_loop_batch"] > 0 and launches["card"]["tear_metrics_batch"] > 0,
+            "dryrun_multichip(4): K5 or K6 did not launch on the card")
+    require(not any(launches["CPU"].values()), "dryrun_multichip(4, device='cpu') launched")
+    return launches["card"]
+
+
+def rank_argv(rank, addr, workdir):
+    """The command line of one rank: this script in its rank mode."""
+    return [sys.executable, os.path.abspath(__file__), "--grid-rank", str(rank),
+            "--grid-addr", addr, "--grid-dir", workdir]
+
+
+def grid_rank(rank, addr, workdir):
+    """One rank of phase 8 (``chip_smoke.py --grid-rank R``): phase 4's tissue
+    from ``workdir`` through ``sliding_window_matching(host_shard=True)`` on the
+    first card, the gather to rank 0 and, there, the merge. Holds its windows
+    to what phase 4 holds a window to and writes its report to ``workdir``."""
+    import pickle
+
+    t_start = time.time()
+    import torch
+
+    require(torch.cuda.is_available(), f"rank {rank}: no CUDA card")
+    sys.path.insert(0, HERE)
+    from same_tpu_torch import (
+        kernels, merge_window_matches_unique_ref, sliding_window_matching,
+    )
+    from same_tpu_torch.parallel import distributed
+
+    t_imported = time.time()
+    with open(os.path.join(workdir, "tissue.pkl"), "rb") as f:
+        mc_ref, mc_align = pickle.load(f)
+    t_loaded = time.time()
+    require(distributed.init_distributed(addr, GRID_RANKS, rank,
+                                         timeout_s=RANK_GROUP_TIMEOUT_S),
+            f"rank {rank}: not a multi-process group")
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.time()
+    with GridSpy() as spy:
+        local = sliding_window_matching(
+            mc_ref, mc_align, optim_params=GRID_OPTIM, solver_params=GRID_RANK_SOLVER,
+            host_shard=True, verbose=False,
+        )
+    torch.cuda.synchronize()
+    t1 = time.time()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    gathered = distributed.gather_matches(local)
+    t2 = time.time()
+    report = {
+        "rank": rank, "pid": os.getpid(), "t_start": t_start, "t_imported": t_imported,
+        "t_loaded": t_loaded, "t_grid": t0, "t_solved": t1,
+        "t_gathered": t2, "window_ids": [int(w) for w in local["window_id"].unique()],
+        "rows": len(local), "launches": launches,
+        "records": [{k: rec[k] for k in RANK_RECORD_KEYS} for rec in spy.records],
+        "received": None if gathered is None else len(gathered),
+    }
+    if rank == 0:
+        require(gathered is not None, "rank 0 received no gathered frame")
+        merged = merge_window_matches_unique_ref([gathered], cell_id_col="metacell_id")
+        report["t_merged"] = time.time()
+        gathered.to_pickle(os.path.join(workdir, "gathered.pkl"))
+        merged.to_pickle(os.path.join(workdir, "merged.pkl"))
+    distributed.dist.destroy_process_group()
+    log_windows(f"[phase 8] rank {rank}:", spy.records)
+    check_windows(f"rank {rank}", spy.records, launches, device_knn=False)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def wait_ranks(procs, timeout_s):
+    """Wait for every rank; kill them all at the first failure or at the limit.
+    Returns each rank's exit code (None where it was killed)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        codes = [p.poll() for p in procs]
+        if all(c is not None for c in codes) or any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.2)
+    codes = [p.poll() for p in procs]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    return codes
+
+
+def phase8_grid(mc_ref, mc_align, seq, pipe, smi_line):
+    """(b) Phase 4's tissue through two ranks of ``host_shard=True`` on the
+    card, held to phase 4's sequential run; the two-rank grid wall, from
+    spawn to the merged frame on rank 0."""
+    import pickle
+    import socket
+    import tempfile
+
+    import pandas as pd
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as workdir:
+        with open(os.path.join(workdir, "tissue.pkl"), "wb") as f:
+            pickle.dump((mc_ref, mc_align), f)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            addr = f"localhost:{s.getsockname()[1]}"
+        # One intra-op thread a rank unless the caller says otherwise, as
+        # torchrun sets it for several processes a node: two ranks of the
+        # host's core count each stall on each other's spinning threads.
+        env = dict(os.environ)
+        env.setdefault("OMP_NUM_THREADS", "1")
+        logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+") for r in range(GRID_RANKS)]
+        t_spawn = time.time()
+        try:
+            procs = [subprocess.Popen(rank_argv(r, addr, workdir), stdout=logs[r],
+                                      stderr=subprocess.STDOUT, cwd=HERE, env=env)
+                     for r in range(GRID_RANKS)]
+            codes = wait_ranks(procs, RANK_TIMEOUT_S)
+            t_exit = time.time()
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+        finally:
+            for f in logs:
+                f.close()
+        for r, (code, out) in enumerate(zip(codes, outs)):
+            if code != 0:
+                log(f"[phase 8] rank {r} output (last 6000 characters):\n{out[-6000:]}")
+        for r, code in enumerate(codes):
+            require(code == 0, f"rank {r} of the multi-process grid "
+                    + ("was killed at the time limit or after its peer failed" if code is None
+                       else f"exited with {code}"))
+        for out in outs:
+            for line in out.splitlines():
+                if line.startswith("[phase 8]"):
+                    log(line)
+        reports = []
+        for r in range(GRID_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        gathered = pd.read_pickle(os.path.join(workdir, "gathered.pkl"))
+        merged = pd.read_pickle(os.path.join(workdir, "merged.pkl"))
+
+    wall = reports[0]["t_merged"] - t_spawn
+    order = list(seq["window_ids"])
+    bounds = np.linspace(0, len(order), GRID_RANKS + 1).astype(int)
+    for r, rep in enumerate(reports):
+        recs = rep["records"]
+        dev = sum(x["device_time"] for x in recs)
+        rep_sum = sum(x["repair"] for x in recs)
+        log(f"[phase 8] (b) rank {r} (pid {rep['pid']}): tasks [{bounds[r]}, {bounds[r + 1]}) "
+            f"of {len(order)}, window ids {rep['window_ids']}, {rep['rows']} rows; start-up "
+            f"to the grid call {rep['t_grid'] - t_spawn:.2f}s (the interpreter and this "
+            f"script {rep['t_start'] - t_spawn:.2f}s, torch and the port "
+            f"{rep['t_imported'] - rep['t_start']:.2f}s, the metacells "
+            f"{rep['t_loaded'] - rep['t_imported']:.2f}s, the gloo rendezvous "
+            f"{rep['t_grid'] - rep['t_loaded']:.2f}s), its windows "
+            f"{rep['t_solved'] - rep['t_grid']:.2f}s (window walls "
+            f"{', '.join(format(x['wall'], '.2f') for x in recs)}s; device_time sum {dev:.3f}s, "
+            f"repair sum {rep_sum:.2f}s), the gather {rep['t_gathered'] - rep['t_solved']:.2f}s"
+            + (f", the merge {rep['t_merged'] - rep['t_gathered']:.2f}s" if r == 0 else "")
+            + f"; launches {json.dumps(rep['launches'])}; {smi_line}")
+        want = order[bounds[r]:bounds[r + 1]]
+        require(rep["window_ids"] == want,
+                f"rank {r}: window ids {rep['window_ids']}, expected {want} of {order}")
+        require(len(recs) == len(want), f"rank {r}: {len(recs)} windows solved for {want}")
+        for name in ("auction_loop", "tear_metrics", "tear_scalars"):
+            require(rep["launches"][name] > 0, f"rank {r}: {name} never launched")
+        if r != 0:
+            require(rep["received"] is None, f"rank {r} received a gathered frame")
+    require(len(gathered) == sum(rep["rows"] for rep in reports),
+            f"gathered {len(gathered)} rows of {[rep['rows'] for rep in reports]}")
+    wids = [int(w) for w in gathered["window_id"].unique()]
+    require(wids == order, f"gathered window ids {wids} vs {order}")
+    agree = hold_to_sequential("[phase 8] (b)", "multi-process grid", wids, merged, seq)
+    log(f"[phase 8] (b) grid wall, {GRID_RANKS} ranks on one card: {wall:.2f}s from spawn to "
+        f"the merged frame ({t_exit - t_spawn:.2f}s to both ranks' exit); phase 4 in this "
+        f"run: sequential {seq['wall']:.2f}s, 2 windows in flight {pipe['wall']:.2f}s (repair "
+        f"budget {GRID_REPAIR_BUDGET_S:g}s a window); {smi_line}")
+    return {"wall": wall, "reports": reports, "agreement": agree}
+
+
+def phase8(mc_ref, mc_align, seq, pipe, smi_line):
+    twins = phase8_twins(smi_line)
+    grid = phase8_grid(mc_ref, mc_align, seq, pipe, smi_line)
+    return {"twins_launches": twins, **grid}
+
+
+# ----------------------------------------------------------------------------
 # Phase 5: the synthetic tissue (the host separation loop)
 # ----------------------------------------------------------------------------
 
@@ -3209,8 +3492,8 @@ def main():
     ap.add_argument("--no-slice", action="store_true",
                     help="stop after phases 2 and 7 (debugging; ends with \"ok\": false)")
     ap.add_argument("--grid-only", action="store_true",
-                    help="phases 0-1, the K3 and K4 checks of phase 2, and phases 4 "
-                         "and 6 (debugging; ends with \"ok\": false)")
+                    help="phases 0-1, the K3 and K4 checks of phase 2, and phases 4, "
+                         "6 and 8 (debugging; ends with \"ok\": false)")
     ap.add_argument("--synthetic", action="store_true",
                     help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
                          "minutes more)")
@@ -3221,7 +3504,12 @@ def main():
                          "warm-start prices and phase 2 (a)'s end state, and K5's stack "
                          "at phase 6 (a) to FILE, for tear_round_bench.py, "
                          "knn_sinkhorn_bench.py and bid_round_bench.py")
+    ap.add_argument("--grid-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--grid-addr", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--grid-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.grid_rank is not None:
+        return grid_rank(args.grid_rank, args.grid_addr, args.grid_dir)
 
     import torch
 
@@ -3251,6 +3539,7 @@ def main():
         mc_gref, mc_galign = grid_tissue(smi_line)
         grid = phase4(mc_gref, mc_galign)
         phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
+        phase8(mc_gref, mc_galign, grid[0], grid[1], smi_line)
         if args.synthetic:
             phase5()
         save_tear_states(args.save_tear_states)
@@ -3279,6 +3568,7 @@ def main():
     mc_gref, mc_galign = grid_tissue(smi_line)
     grid = phase4(mc_gref, mc_galign)
     batched = phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
+    multi = phase8(mc_gref, mc_galign, grid[0], grid[1], smi_line)
     if args.synthetic:
         phase5()
     save_tear_states(args.save_tear_states)
@@ -3455,6 +3745,10 @@ def main():
     ]
     for kern in kernels[:3] + kernels[-4:-2]:
         kern["launches_in_grid"] = {label: l[kern["name"]] for label, l in grid_launches.items()}
+        kern["launches_in_multiprocess_grid"] = {
+            f"rank {rep['rank']}": rep["launches"][kern["name"]] for rep in multi["reports"]}
+    for kern in kernels:
+        kern["launches_in_dryrun_multichip"] = multi["twins_launches"][kern["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     ok = args.cells == LUAD_CELLS

@@ -1,3 +1,4 @@
+from . import distributed
 from .shard import (
     make_mesh,
     solve_window_batch,
@@ -6,6 +7,7 @@ from .shard import (
 )
 
 __all__ = [
+    "distributed",
     "make_mesh",
     "solve_window_batch",
     "solve_windows_sharded",

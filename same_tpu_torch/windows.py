@@ -18,8 +18,9 @@ the first CUDA card, ``"cpu"`` on request) and passes it down. With
 ``mesh`` (a sequence of torch devices, e.g. ``parallel.make_mesh()``) every
 window is prepared on the host, the windows' device solves run as one batch
 per shape bucket (``parallel.solve_windows_sharded``), and the windows are
-finalized in grid order. The multi-host mode (``host_shard=True``) is not
-ported yet and raises ``NotImplementedError``.
+finalized in grid order. With ``host_shard=True`` (the multi-process mode,
+``parallel.distributed``) each process solves only its block of the grid's
+windows, on its own ``device``.
 
 Windows in flight: in the pipelined path up to ``tpu_pipeline_windows`` host
 threads run ``solve_prepared`` at once. All of them launch on the device's
@@ -194,15 +195,18 @@ def sliding_window_matching(
     CUDA card by default (raises without one), ``"cpu"`` on request.
 
     ``mesh`` (a sequence of torch devices) solves the windows as batches of
-    one shape bucket each, sharded over its devices. ``host_shard=True``
-    (the multi-host mode, ROADMAP A12) is not ported yet: it raises
-    ``NotImplementedError`` rather than run another path quietly.
+    one shape bucket each, sharded over its devices.
+
+    ``host_shard=True`` is the multi-process mode: after the window grid is
+    collected (identically on every process) each process keeps only its
+    ``parallel.distributed.host_window_slice`` of the tasks, solves them on
+    ``device`` and returns just those windows' matches; callers gather the
+    shards with ``distributed.gather_matches`` and run the uniqueness merge
+    on the root. Window ids stay globally consistent because the grid
+    (including small-window merging) is computed from the full extent on
+    every process. Processes that share ``outprefix`` overwrite each other's
+    ``matchedDF.csv``, as in the JAX package (ROADMAP C14): give each its own.
     """
-    if host_shard:
-        raise NotImplementedError(
-            "sliding_window_matching(host_shard=True) needs "
-            "parallel/distributed.py, which is not ported yet: ROADMAP A12"
-        )
     device = resolve_device(device)
     ref_cell_type_col = "cell_type"
     moving_cell_type_col = "cell_type"
@@ -301,6 +305,17 @@ def sliding_window_matching(
         ref, moving, x_windows, y_windows, window_size, overlap, min_cells,
         windows_to_process, x_min, x_max, y_min, y_max, verbose,
     )
+
+    if host_shard:
+        from .parallel.distributed import host_window_slice
+
+        sl = host_window_slice(len(tasks))
+        if verbose:
+            print(
+                f"host_shard: process owns windows [{sl.start}, {sl.stop}) "
+                f"of {len(tasks)}"
+            )
+        tasks = tasks[sl]
 
     def _crop_and_record(task, window_matches):
         if window_matches.shape[0] == 0:

@@ -134,10 +134,11 @@ def test_subset_and_unprocessed_windows_match_jax(tissue, grids):
     pd.testing.assert_frame_equal(existing_t, existing_j)
 
 
-@pytest.mark.parametrize("kw", [{"host_shard": True}])
-def test_unported_paths_raise(tissue, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        _grid(same_tpu_torch, *tissue, 1, **kw)
+def test_host_shard_single_process_is_the_sequential_grid(tissue, grids):
+    """With no process group the one process owns every window."""
+    shard = _grid(same_tpu_torch, *tissue, 1, host_shard=True)
+    pd.testing.assert_frame_equal(
+        shard[KEY].reset_index(drop=True), grids["seq"][KEY].reset_index(drop=True))
 
 
 def test_grid_needs_card_by_default(tissue, monkeypatch):
@@ -158,7 +159,8 @@ def test_cell_type_mismatch_raises(tissue):
 
 def test_new_modules_import_no_jax(tmp_path):
     """The window grid, the batched window solve, the device kNN and the
-    Sinkhorn start run with jax made unimportable."""
+    Sinkhorn start run with jax made unimportable; the multi-process grid,
+    the entry-point twins and the figures import without it."""
     tests_dir = os.path.dirname(os.path.abspath(__file__))
     code = (
         "import sys\n"
@@ -166,7 +168,8 @@ def test_new_modules_import_no_jax(tmp_path):
         f"sys.path[:0] = [{os.path.dirname(tests_dir)!r}, {tests_dir!r}]\n"
         "import numpy as np\n"
         "import same_tpu_torch.windows, same_tpu_torch.ops.pairwise, same_tpu_torch.ops.sinkhorn\n"
-        "import same_tpu_torch.parallel\n"
+        "import same_tpu_torch.parallel, same_tpu_torch.parallel.distributed\n"
+        "import same_tpu_torch.graft_entry, same_tpu_torch.viz\n"
         "from same_tpu_torch.models.assignment import build_assignment_problem\n"
         "from torch_parity import knn_points, sinkhorn_problem\n"
         "q, r, radius, k = knn_points('ties')\n"
