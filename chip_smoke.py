@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``same_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # the full check, about 7 minutes on an H100
+    python3 chip_smoke.py            # the full check, about 12 minutes on an H100
 
 Phases (any failure exits nonzero; no phase's exception is swallowed):
 
@@ -140,9 +140,10 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    and 0.01 of the JAX package's record in BENCH_r05.json, and the
    objective at most 5 % (the window's mip_gap) above it.
 
-4. The window grid: a tissue of ``examples/bench_grid.py::make_tissue`` at
-   LUAD density over a quarter of its area (25k cells a side, MS=3 metacells,
-   2 x 2 windows of about 3,000 aligned metacells, C = 24, dp = 25) through
+4. The window grid: a tissue of ``same_tpu_torch.examples.bench_grid``'s
+   ``make_tissue`` (the twin of ``examples/bench_grid.py``) at LUAD density
+   over a quarter of its area (25k cells a side, MS=3 metacells, 2 x 2
+   windows of about 3,000 aligned metacells, C = 24, dp = 25) through
    ``same_tpu_torch.sliding_window_matching`` on the card (no ``device``
    argument) and ``merge_window_matches_unique_ref``, three times:
    sequentially, with two windows in flight (the library default), and
@@ -204,6 +205,27 @@ Phases (any failure exits nonzero; no phase's exception is swallowed):
    printed; the other rank killed). Prints each rank's wall, ``device_time``
    and repair sums, and the two-rank grid wall from spawn to the merged frame
    beside phase 4's sequential and two-in-flight walls.
+9. The full LUAD grid through ``same_tpu_torch.examples.bench_grid``, the
+   twin of ``examples/bench_grid.py``, at its defaults: ``make_tissue()``
+   (100,000 cells a side over 26,000 units, the query keeping 94 %),
+   ``collapse`` (MS=3, both sides), ``run_grid`` at dp = 25 (windows of 13,000,
+   overlap 250, the script's solver dict; no ``device``, so on the card) and
+   ``evaluate`` (merge, ``unpack_metacell_matches`` nearest, top-k type
+   match), with the script's own ``solver_overrides`` for the repair: 12 s a
+   window and the speculative repair off (``FULL_GRID_SOLVER``, why there).
+   Prints each window's aligned count, padded shape, separation loop (the
+   fused loop for n >= 512, the host loop named on its line), tear rounds,
+   ``device_time``, repair time and objective, and the stage times (tissue,
+   collapse, grid solve, downstream). Held to the JAX package's run of the
+   same script on the same tissue (``examples/results/luad_grid_dp25.json``):
+   8 windows exactly; grid, merged and single-cell matches each within 1 %;
+   single-cell type accuracy and top-1 at least 99 %; every window a valid
+   matching with a finite objective at or above its lower bound; each id at
+   most once in the merged frame; in each fused-loop window ``auction_loop``
+   and K7 once per auction solve, K8 once a registering round and K2 at
+   least once, K1 never. Then ``run_grid`` again on the same checkpoints:
+   every window skipped (nothing launched), the same rows in the key
+   columns, in at most a tenth of the first run's wall.
 5. Only with ``--synthetic`` (its repair runs for minutes at the default
    budget of a window this small): the paper's synthetic tissue (seed 8899,
    372 query cells, the host separation loop for windows under 512 points)
@@ -216,7 +238,7 @@ the last line ``{"ok": true, "device": {...}}``. Debugging options, each
 ending with ``"ok": false`` and exit code 2: ``--cells N`` shrinks the LUAD
 window (the anchor check then does not apply), ``--no-slice`` stops after
 phases 2 and 7, ``--grid-only`` runs phases 0-1, the K3 and K4 checks and
-phases 4, 6 and 8. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
+phases 4, 6, 8 and 9. ``--save-tear-states FILE`` writes the inputs K2, K3, K4,
 K5, K6, K7 and K8 were checked on (the LUAD window's round 0, problem and
 coordinates, phase 6's stack) and the LUAD problem with its warm-start
 prices and phase 2 (a)'s end state to FILE for ``tear_round_bench.py``,
@@ -2186,41 +2208,6 @@ def phase3(mc_ref, mc_align, types, full, obj_lb, smi_line):
 # Phase 4: the window grid
 # ----------------------------------------------------------------------------
 
-GRID_TYPES = ["B cell", "Epithelial", "Mesenchymal", "Myeloid", "T cell"]
-
-
-def make_tissue(n_cells, extent, seed=3, query_keep=0.94):
-    """LUAD-like tissue: the generator of examples/bench_grid.py (numpy and
-    pandas only), kept here so that the smoke imports nothing of examples/."""
-    import pandas as pd
-
-    rng = np.random.default_rng(seed)
-    xy = rng.uniform(0, extent, (n_cells, 2))
-    centers = rng.uniform(0, extent, (len(GRID_TYPES) * 24, 2))
-    center_type = rng.integers(0, len(GRID_TYPES), len(centers))
-    types = np.empty(n_cells, np.int64)
-    for s in range(0, n_cells, 20000):
-        d = ((xy[s:s + 20000, None, :] - centers[None, :, :]) ** 2).sum(-1)
-        types[s:s + 20000] = center_type[np.argmin(d, axis=1)]
-    probs = np.full((n_cells, len(GRID_TYPES)), 2.0)
-    probs[np.arange(n_cells), types] = 86.0
-    probs += rng.uniform(0, 2, probs.shape)
-    probs = probs / probs.sum(1, keepdims=True) * 100.0
-
-    def frame(jseed, keep_frac=1.0):
-        r = np.random.default_rng(jseed)
-        keep = r.random(n_cells) < keep_frac
-        df = pd.DataFrame(
-            xy[keep] + r.normal(0, 15.0, (int(keep.sum()), 2)), columns=["X", "Y"])
-        df["cell_type"] = np.asarray(GRID_TYPES)[types[keep]]
-        for k, nm in enumerate(GRID_TYPES):
-            df[nm] = probs[keep, k]
-        df["Cell_Num_Old"] = np.arange(len(df))
-        return df
-
-    return frame(1), frame(2, keep_frac=query_keep), list(GRID_TYPES)
-
-
 def thread_launches(fn):
     """Launches of kernel wrapper ``fn`` made by the calling thread so far."""
     import threading
@@ -2504,6 +2491,7 @@ def check_windows(label, recs, launches, device_knn):
 def grid_tissue(smi_line):
     """Phase 4's tissue collapsed to metacells: (mc_ref, mc_align)."""
     from same_tpu_torch import greedy_triangle_collapse
+    from same_tpu_torch.examples.bench_grid import make_tissue
 
     t0 = time.time()
     ref_df, qry_df, _types = make_tissue(GRID_CELLS, GRID_EXTENT)
@@ -3350,6 +3338,168 @@ def phase8(mc_ref, mc_align, seq, pipe, smi_line):
 
 
 # ----------------------------------------------------------------------------
+# Phase 9: the full LUAD grid, through the bench_grid twin
+# ----------------------------------------------------------------------------
+
+# The JAX package's run of examples/bench_grid.py --dp 25 on the same tissue.
+FULL_GRID_RECORD = os.path.join("examples", "results", "luad_grid_dp25.json")
+FULL_GRID_DP = 25.0
+# The repair budget of a window, passed as the script's own --solver
+# overrides. At the defaults the grid solve took 465 s on an H100, each full
+# window ~120-130 s and two edge strips ~170 s, nearly all of it repair
+# (PERF.md, section 5). 12 s a window keeps the phase under 5 minutes; the
+# speculative repair is off because with a short budget its answer is a race
+# between the two repairs (ROADMAP C8), so the repair after separation
+# decides every window. The repair is anytime and holds HOST_LOCK, so the
+# grid solve grows by about the budget times the 8 windows, and the merged
+# count moves with it: 0.01 % under the record's at the defaults, 0.88-0.90 %
+# at 8 and 10 s in three runs (too close to the 1 % gate), 0.64-0.79 % at
+# 12 s in two, 0.60 % at 20 s for 67 s more of grid solve.
+FULL_GRID_REPAIR_BUDGET_S = 12.0
+FULL_GRID_SOLVER = {"tpu_speculative_repair": False,
+                    "tpu_repair_budget": FULL_GRID_REPAIR_BUDGET_S}
+FULL_GRID_COUNTS = ("grid_matches", "merged_matches", "individual_matches")
+
+
+def full_grid_windows(recs):
+    """Each window's line, the loop it took and its checks; returns the
+    loops' names in grid order."""
+    loops = []
+    for i, rec in enumerate(recs):
+        k = rec["launches"]
+        solves = sum(len(s) for s in rec["solves"])
+        loop = "fused" if k["tear_scalars"] > 0 else "host"
+        loops.append(loop)
+        log(f"[phase 9]   window {i}: n {rec['n']} aligned (in {rec['n_mov_in']} / "
+            f"{rec['n_ref_in']} ref), [n_pad, C] {rec['shape']}, T {rec['T']}; "
+            + ("fused loop (n >= 512)" if loop == "fused" else "HOST LOOP (n < 512)")
+            + f": tear rounds {rec['tear_rounds']}, auction rounds {rec['auction_rounds']}, "
+            f"matches {rec['matches']}, flip {rec['flip_fraction']:.4f}, objective "
+            f"{rec['objective']:.1f} (lower bound {rec['obj_lb']:.1f}); device_time "
+            f"{rec['device_time']:.3f}s, separation {rec['separation']:.2f}s, repair "
+            f"{rec['repair']:.2f}s, wall {rec['wall']:.2f}s; launches {json.dumps(k)}")
+        what = f"full grid, window {i} (n {rec['n']})"
+        require((loop == "fused") == (rec["n"] >= 512),
+                f"{what}: took the {loop} loop at n = {rec['n']}")
+        require(solves > 0 and k["auction_loop"] >= solves,
+                f"{what}: auction_loop launched {k['auction_loop']} times for {solves} "
+                f"incumbents")
+        require(k["tear_metrics"] > 0, f"{what}: K2 never ran")
+        if loop == "fused":
+            require(k["auction_loop"] == solves,
+                    f"{what}: auction_loop launched {k['auction_loop']} times for {solves} "
+                    f"auction solves")
+            require(k["tear_scalars"] == solves,
+                    f"{what}: K7 launched {k['tear_scalars']} times for {solves} tear rounds")
+            k8 = k["register_cuts"]
+            require(solves - len(rec["solves"]) <= k8 <= solves and k8 > 0,
+                    f"{what}: K8 launched {k8} times in {solves} tear rounds")
+        else:
+            require(k["register_cuts"] == 0, f"{what}: K8 ran in the host loop")
+        require(rec["over_capacity"] == 0, f"{what}: {rec['over_capacity']} refs over capacity")
+        require(np.isfinite(rec["objective"]) and rec["objective"] >= rec["obj_lb"],
+                f"{what}: objective {rec['objective']} against lower bound {rec['obj_lb']}")
+        require(0 < rec["matches"] <= rec["n"] and 0.0 <= rec["flip_fraction"] <= 1.0,
+                f"{what}: {rec['matches']} matches, flip fraction {rec['flip_fraction']}")
+    return loops
+
+
+def phase9(smi_line):
+    """The full LUAD grid through ``same_tpu_torch.examples.bench_grid`` at its
+    defaults (``make_tissue()``, ``collapse``, ``run_grid`` at dp = 25 with the
+    script's solver dict, ``evaluate``), at a repair budget of
+    FULL_GRID_REPAIR_BUDGET_S a window, held to the JAX package's record of
+    the same script; then the grid again on its checkpoints (every window
+    skipped, the same rows)."""
+    import tempfile
+
+    import torch
+
+    from same_tpu_torch import kernels, merge_window_matches_unique_ref
+    from same_tpu_torch.examples import bench_grid
+
+    with open(os.path.join(HERE, FULL_GRID_RECORD)) as f:
+        record = json.load(f)
+    t0 = time.time()
+    ref_df, qry_df, types = bench_grid.make_tissue()
+    t_tissue = time.time() - t0
+    t0 = time.time()
+    mc_align = bench_grid.collapse(qry_df)
+    mc_ref = bench_grid.collapse(ref_df)
+    t_collapse = time.time() - t0
+    log(f"[phase 9] tissue: {len(ref_df)} / {len(qry_df)} cells in {t_tissue:.1f}s; collapse "
+        f"MS=3 -> {len(mc_ref.metacell_df)} / {len(mc_align.metacell_df)} metacells in "
+        f"{t_collapse:.1f}s; {smi_line}")
+    fns = {name: getattr(kernels, name) for name in KERNELS}
+    key = ["window_id", "Aligned_metacell_id", "Ref_metacell_id"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_full_grid_") as out:
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with GridSpy() as spy:
+            t_solve, matches = bench_grid.run_grid(
+                mc_ref, mc_align, types, FULL_GRID_DP, out=out, verbose=False,
+                solver_overrides=FULL_GRID_SOLVER)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in fns.items()}
+        telemetry = bench_grid.harvest_stage_telemetry(out, t_solve)
+        result = {"windows": int(matches["window_id"].nunique()),
+                  "grid_matches": int(len(matches)), "grid_solve_seconds": t_solve,
+                  **telemetry, **bench_grid.evaluate(matches, mc_ref, mc_align, types)}
+        merged = merge_window_matches_unique_ref([matches], cell_id_col="metacell_id")
+        # The same grid again on its checkpoints: every window is skipped.
+        for fn in fns.values():
+            fn.launches = 0
+        with GridSpy() as spy_again:
+            t_again, again = bench_grid.run_grid(
+                mc_ref, mc_align, types, FULL_GRID_DP, out=out, verbose=False,
+                solver_overrides=FULL_GRID_SOLVER)
+        launches_again = {name: fn.launches for name, fn in fns.items()}
+    log(f"[phase 9] grid (dp {FULL_GRID_DP:g}, window 13000, overlap 250, repair budget "
+        f"{FULL_GRID_REPAIR_BUDGET_S:g}s a window, speculative repair off): "
+        f"{len(spy.records)} windows, launches {json.dumps(launches)}")
+    loops = full_grid_windows(spy.records)
+    log(f"[phase 9] stage times: tissue {t_tissue:.1f}s, collapse {t_collapse:.1f}s, grid solve "
+        f"{t_solve:.1f}s ({sum(r['repair'] for r in spy.records):.1f}s of it repair, "
+        f"{sum(r['device_time'] for r in spy.records):.2f}s device_time), downstream "
+        f"{result['downstream_seconds']:.1f}s; {smi_line}")
+    log("[phase 9] result: " + json.dumps(result))
+    log("[phase 9] JAX record (" + FULL_GRID_RECORD + "): "
+        + json.dumps({k: record[k] for k in ("windows", *FULL_GRID_COUNTS,
+                                             "individual_ct_accuracy_pct", "top1_pct")}))
+    require(result["windows"] == record["windows"] == len(spy.records),
+            f"full grid: {result['windows']} windows ({len(spy.records)} solved), the record "
+            f"{record['windows']}")
+    for name in FULL_GRID_COUNTS:
+        require(abs(result[name] - record[name]) <= 0.01 * record[name],
+                f"full grid: {name} {result[name]} against the record's {record[name]}")
+    for name in ("individual_ct_accuracy_pct", "top1_pct"):
+        require(result[name] >= 99.0, f"full grid: {name} {result[name]}")
+    for col in ("Aligned_metacell_id", "Ref_metacell_id"):
+        require(merged[col].is_unique, f"full grid: {col} repeats in the merged frame")
+    require(len(merged) == result["merged_matches"],
+            f"full grid: {len(merged)} merged rows, evaluate says {result['merged_matches']}")
+    require(launches["auction_bid"] == 0, "full grid: the single-round K1 ran")
+    for name in ("auction_loop_batch", "tear_metrics_batch"):
+        require(launches[name] == 0, f"full grid: the batched {name} ran without a mesh")
+    for name in ("auction_loop", "tear_metrics", "tear_scalars", "register_cuts"):
+        require(launches[name] == sum(r["launches"][name] for r in spy.records),
+                f"full grid: {name} launches outside the windows' solves")
+    first = matches.sort_values(key).reset_index(drop=True)
+    second = again.sort_values(key).reset_index(drop=True)
+    same_rows = len(first) == len(second) and all(
+        first[k].tolist() == second[k].tolist() for k in key)
+    log(f"[phase 9] resume on the checkpoints: {len(spy_again.records)} windows solved, "
+        f"{len(again)} rows (same rows: {same_rows}), grid wall {t_again:.2f}s against "
+        f"{t_solve:.1f}s; launches {sum(launches_again.values())}")
+    require(not spy_again.records and not any(launches_again.values()),
+            f"resume: {len(spy_again.records)} windows solved again")
+    require(same_rows, "resume: the rows differ from the first run's")
+    require(t_again <= 0.1 * t_solve, f"resume: {t_again:.1f}s against {t_solve:.1f}s")
+    return {"launches": launches, "loops": loops, "result": result}
+
+
+# ----------------------------------------------------------------------------
 # Phase 5: the synthetic tissue (the host separation loop)
 # ----------------------------------------------------------------------------
 
@@ -3493,7 +3643,7 @@ def main():
                     help="stop after phases 2 and 7 (debugging; ends with \"ok\": false)")
     ap.add_argument("--grid-only", action="store_true",
                     help="phases 0-1, the K3 and K4 checks of phase 2, and phases 4, "
-                         "6 and 8 (debugging; ends with \"ok\": false)")
+                         "6, 8 and 9 (debugging; ends with \"ok\": false)")
     ap.add_argument("--synthetic", action="store_true",
                     help="also run phase 5, the seed-8899 synthetic tissue (about 3 "
                          "minutes more)")
@@ -3540,6 +3690,7 @@ def main():
         grid = phase4(mc_gref, mc_galign)
         phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
         phase8(mc_gref, mc_galign, grid[0], grid[1], smi_line)
+        phase9(smi_line)
         if args.synthetic:
             phase5()
         save_tear_states(args.save_tear_states)
@@ -3569,6 +3720,7 @@ def main():
     grid = phase4(mc_gref, mc_galign)
     batched = phase6(mc_gref, mc_galign, grid[0], pw, device, smi_line)
     multi = phase8(mc_gref, mc_galign, grid[0], grid[1], smi_line)
+    full_grid = phase9(smi_line)
     if args.synthetic:
         phase5()
     save_tear_states(args.save_tear_states)
@@ -3749,6 +3901,7 @@ def main():
             f"rank {rep['rank']}": rep["launches"][kern["name"]] for rep in multi["reports"]}
     for kern in kernels:
         kern["launches_in_dryrun_multichip"] = multi["twins_launches"][kern["name"]]
+        kern["launches_in_full_grid"] = full_grid["launches"][kern["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     ok = args.cells == LUAD_CELLS
