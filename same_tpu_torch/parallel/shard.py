@@ -26,6 +26,7 @@ from ..kernels.auction_loop import auction_loop_batch
 from ..models.assignment import AssignmentProblem, default_device
 from ..solver.auction import make_eps_schedule, natural_stop_args
 from ..solver.tearing_device import mesh_devices
+from ..trace import add, span
 
 
 def make_mesh(n_devices: Optional[int] = None) -> List[torch.device]:
@@ -200,51 +201,52 @@ def solve_windows_sharded(
                     batch_deadline, d
                 )
         t_sep0 = _time.time()
-        datas = run_tearing_device_batch(
-            [p.problem for p in pws],
-            [p.tris for p in pws],
-            [p.tri_weights for p in pws],
-            [p.source_signs for p in pws],
-            [p.ref_coords for p in pws],
-            delaunay_penalties=[
-                float(p.optim["delaunay_penalty"]) for p in pws
-            ],
-            allowed_flip_fractions=[
-                (
-                    p.solver["lazy_allowed_flip_fraction"]
-                    if p.optim["lazy_constraints"]
-                    else 0.0
-                )
-                for p in pws
-            ],
-            hards=[bool(p.optim["hard_spatial_constraints"]) for p in pws],
-            eps_finals=[p.eps_solver for p in pws],
-            penalty_coeffs=[float(p.optim["penalty_coeff"]) for p in pws],
-            eps_scaling=float(solver0["tpu_eps_scaling"]),
-            max_cuts=solver0["lazy_max_cuts"],
-            max_cuts_per_round=solver0["lazy_max_cuts_per_incumbent"],
-            max_tear_rounds=solver0["tpu_max_tear_rounds"],
-            mesh=mesh,
-            prices0_list=[p.prices0 for p in pws],
-            deadline=batch_deadline,
-            # The JAX package's fallbacks (ROADMAP C3), read the same way.
-            plateau_patiences=[
-                p.solver.get("tpu_tear_patience", 6) for p in pws
-            ],
-            plateau_tols=[
-                p.solver.get("tpu_tear_plateau_tol", 0.0) for p in pws
-            ],
-            obj_patience=solver0.get("tpu_auction_patience", 128),
-            mip_gaps=[
-                (
-                    float(p.solver["mip_gap"])
-                    if p.solver.get("tpu_gap_certificate", True)
-                    else None
-                )
-                for p in pws
-            ],
-        )
-        return datas, t_sep0, _time.time() - t_sep0
+        with span(None, "separation_time") as sep:
+            datas = run_tearing_device_batch(
+                [p.problem for p in pws],
+                [p.tris for p in pws],
+                [p.tri_weights for p in pws],
+                [p.source_signs for p in pws],
+                [p.ref_coords for p in pws],
+                delaunay_penalties=[
+                    float(p.optim["delaunay_penalty"]) for p in pws
+                ],
+                allowed_flip_fractions=[
+                    (
+                        p.solver["lazy_allowed_flip_fraction"]
+                        if p.optim["lazy_constraints"]
+                        else 0.0
+                    )
+                    for p in pws
+                ],
+                hards=[bool(p.optim["hard_spatial_constraints"]) for p in pws],
+                eps_finals=[p.eps_solver for p in pws],
+                penalty_coeffs=[float(p.optim["penalty_coeff"]) for p in pws],
+                eps_scaling=float(solver0["tpu_eps_scaling"]),
+                max_cuts=solver0["lazy_max_cuts"],
+                max_cuts_per_round=solver0["lazy_max_cuts_per_incumbent"],
+                max_tear_rounds=solver0["tpu_max_tear_rounds"],
+                mesh=mesh,
+                prices0_list=[p.prices0 for p in pws],
+                deadline=batch_deadline,
+                # The JAX package's fallbacks (ROADMAP C3), read the same way.
+                plateau_patiences=[
+                    p.solver.get("tpu_tear_patience", 6) for p in pws
+                ],
+                plateau_tols=[
+                    p.solver.get("tpu_tear_plateau_tol", 0.0) for p in pws
+                ],
+                obj_patience=solver0.get("tpu_auction_patience", 128),
+                mip_gaps=[
+                    (
+                        float(p.solver["mip_gap"])
+                        if p.solver.get("tpu_gap_certificate", True)
+                        else None
+                    )
+                    for p in pws
+                ],
+            )
+        return datas, t_sep0, sep.seconds
 
     # Bucket-level pipeline: bucket k+1's batched device separation runs on
     # a device thread while bucket k's host finishes (incumbent eval +
@@ -281,6 +283,7 @@ def _finish_groups(
             inc = incumbents_from_device_data(
                 pw.problem, len(pw.tris), data, verbose=False
             )
+            times = {}
             res = _finish_solve(
                 pw.problem,
                 pw.pair_costs,
@@ -312,15 +315,12 @@ def _finish_groups(
                     if pw.solver.get("tpu_gap_certificate", True)
                     else None
                 ),
+                times=times,
             )
-            pw.stage_times["solve"] = t_sep / max(len(pws), 1)
-            for k2 in (
-                "separation_time", "repair_time", "incumbent_eval_time",
-                "host_queue_time", "device_time",
-            ):
-                if k2 in res.info:
-                    pw.stage_times[k2] = res.info[k2]
-            pw.stage_times["separation_time"] = t_sep / max(len(pws), 1)
+            # The batch's separation, split evenly over its windows.
+            times["separation_time"] = t_sep / max(len(pws), 1)
+            times["solve"] = times["separation_time"]
+            add(pw.stage_times, times)
             if "device_time" in data:
                 pw.stage_times["device_time"] = data["device_time"]
             # Gap certification (mirrors solve_prepared): the auction bounds

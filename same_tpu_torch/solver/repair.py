@@ -28,6 +28,8 @@ import time as _time
 
 import numpy as np
 
+from ..trace import span
+
 
 class _RepairState:
     """Mutable matching state with O(degree) move deltas."""
@@ -339,202 +341,235 @@ def local_repair(
     an incident triangle is rejected. ``flip_allowance`` (in dp*w units)
     exempts a budget's worth of uncut flips from the flips-pay term (see
     _RepairState).
+
+    ``stats`` receives the repair's spans (``sweep_time``, the greedy
+    sweeps; ``components_time``, the component passes; ``intensify_time``,
+    the last long solves) and counters: ``sweeps`` begun,
+    ``sweeps_cut_short`` (0 or 1), ``sweep_candidates`` listed and
+    ``sweep_vertices`` evaluated (both summed over the sweeps),
+    ``sweep_moves`` and ``compound_moves`` applied, ``component_passes``,
+    the objective ``objective_in``, ``objective_after_sweeps`` and
+    ``objective_out``, and ``ended_by``: ``deadline``, ``converged`` (a
+    sweep found no move), ``stall`` (component passes stopped gaining) or
+    ``max_passes``.
     """
-    _t_repair0 = _time.time()
     workers = resolve_repair_workers(workers)
-    if stats is not None:
-        stats["repair_workers"] = workers
-    st = _RepairState(
-        problem, pair_costs, tris, tri_weights, source_signs, ref_coords,
-        match_ref, match_pair, cut_arrays, delaunay_penalty, penalty_coeff,
-        flip_penalty=flip_penalty, flip_allowance=flip_allowance,
-    )
-    n = st.n
-    timed_out = False
-    if stats is not None:
+    stats = {} if stats is None else stats
+    stats["repair_workers"] = workers
+    with span(stats, "sweep_time"):
+        st = _RepairState(
+            problem, pair_costs, tris, tri_weights, source_signs, ref_coords,
+            match_ref, match_pair, cut_arrays, delaunay_penalty, penalty_coeff,
+            flip_penalty=flip_penalty, flip_allowance=flip_allowance,
+        )
+        n = st.n
+        timed_out = False
         stats["flips_in"] = int(st.local_flips(np.arange(st.T)).sum())
+        stats["objective_in"] = float(st.obj)
 
-    # The greedy sweeps get at most ~40% of the repair budget: the exact
-    # component MILPs below find the coordinated escapes greedy cannot, so
-    # starving them for more 1-move sweeps is a bad trade.
-    sweep_deadline = deadline
-    if deadline is not None:
-        now = _time.time()
-        sweep_deadline = now + 0.4 * max(deadline - now, 0.0)
+        # The greedy sweeps get at most ~40% of the repair budget: the exact
+        # component MILPs below find the coordinated escapes greedy cannot, so
+        # starving them for more 1-move sweeps is a bad trade.
+        sweep_deadline = deadline
+        if deadline is not None:
+            now = _time.time()
+            sweep_deadline = now + 0.4 * max(deadline - now, 0.0)
 
-    sweeps_cut_short = False
-    for _ in range(max_sweeps):
-        if sweep_deadline is not None and _time.time() > sweep_deadline:
-            sweeps_cut_short = True
-            break
-        all_t = np.arange(st.T)
-        flipped_t = all_t[st.local_flips(all_t)]
-        cand = set(st.tris[flipped_t].ravel().tolist())
-        if len(st.ct):
-            cand.update(np.unique(st.cv).tolist())
-        if not hard and st.flip_pen > 0.0 and st.W_A - st.S_free > 1e-9:
-            # Leftover flip-budget allowance: also visit the highest-regret
-            # vertices — moves that flip a triangle within the allowance
-            # are free under delta(), so greedy can spend the budget on
-            # cost-reducing flips the incumbent search suppressed.
-            reg = _vertex_regret(st, problem, pair_costs)
-            k = 2048 if n <= 6144 else 512
-            top = np.argsort(-reg)[:k]
-            cand.update(int(v) for v in top[reg[top] > 1e-9])
-        cand = sorted(c for c in cand if 0 <= c < n)
-        if not cand:
-            break
-        improved = False
-
-        for vi, v in enumerate(cand):
-            if (
-                sweep_deadline is not None
-                and (vi & 63) == 0
-                and _time.time() > sweep_deadline
-            ):
+        sweeps_cut_short = False
+        ended_by = "max_passes"
+        sweeps = sweep_candidates = sweep_vertices = sweep_moves = compound_moves = 0
+        for _ in range(max_sweeps):
+            if sweep_deadline is not None and _time.time() > sweep_deadline:
                 sweeps_cut_short = True
                 break
-            cur_pair = int(st.match_pair[v])
-            cur_ref = int(st.match_ref[v])
-            best_d, best_move = -1e-9, None
-            inc = st.tris_of(v)
-            options = [(-1, -1)]
-            for c in np.flatnonzero(problem.valid[v]):
-                p = int(problem.pair_idx[v, c])
-                j = int(problem.cand_ref[v, c])
-                if p != cur_pair and st.capacity_ok(v, j):
-                    options.append((p, j))
-            for p, j in options:
-                if p == cur_pair:
-                    continue
-                d = st.delta(v, p, j)
-                if d >= best_d:
-                    continue
-                if hard and p >= 0:
-                    # Reject moves creating a flip on incident triangles.
-                    st.apply(v, p, j)
-                    bad = st.local_flips(inc).any()
-                    st.apply(v, cur_pair, cur_ref)
-                    if bad:
-                        continue
-                best_d, best_move = d, (p, j)
-            if best_move is not None:
-                st.apply(v, *best_move)
-                improved = True
-
-        if sweeps_cut_short:
-            break
-        # Compound move: re-match an unmatched vertex and simultaneously
-        # unmatch one neighbor whose absence disables the would-be flipped
-        # triangles — the MIP's favourite escape (an orientation check only
-        # applies to fully matched triangles).
-        for vi, v in enumerate(cand):
-            if st.match_ref[v] >= 0:
-                continue
-            if (
-                sweep_deadline is not None
-                and (vi & 63) == 0
-                and _time.time() > sweep_deadline
-            ):
-                sweeps_cut_short = True
+            sweeps += 1
+            all_t = np.arange(st.T)
+            flipped_t = all_t[st.local_flips(all_t)]
+            cand = set(st.tris[flipped_t].ravel().tolist())
+            if len(st.ct):
+                cand.update(np.unique(st.cv).tolist())
+            if not hard and st.flip_pen > 0.0 and st.W_A - st.S_free > 1e-9:
+                # Leftover flip-budget allowance: also visit the highest-regret
+                # vertices — moves that flip a triangle within the allowance
+                # are free under delta(), so greedy can spend the budget on
+                # cost-reducing flips the incumbent search suppressed.
+                reg = _vertex_regret(st, problem, pair_costs)
+                k = 2048 if n <= 6144 else 512
+                top = np.argsort(-reg)[:k]
+                cand.update(int(v) for v in top[reg[top] > 1e-9])
+            cand = sorted(c for c in cand if 0 <= c < n)
+            sweep_candidates += len(cand)
+            if not cand:
+                ended_by = "converged"
                 break
-            inc = st.tris_of(v)
-            best_d, best_compound = -1e-9, None
-            for c in np.flatnonzero(problem.valid[v]):
-                p = int(problem.pair_idx[v, c])
-                j = int(problem.cand_ref[v, c])
-                if not st.capacity_ok(v, j):
-                    continue
-                d1 = st.apply(v, p, j)
-                new_flips = inc[st.local_flips(inc)]
-                neighbors = {
-                    int(w)
-                    for t in new_flips
-                    for w in st.tris[t]
-                    if w != v and st.match_ref[w] >= 0
-                }
-                for w in neighbors:
-                    wp, wj = int(st.match_pair[w]), int(st.match_ref[w])
-                    d2 = st.delta(w, -1, -1)
-                    total = d1 + d2
-                    if total >= best_d:
+            improved = False
+
+            for vi, v in enumerate(cand):
+                if (
+                    sweep_deadline is not None
+                    and (vi & 63) == 0
+                    and _time.time() > sweep_deadline
+                ):
+                    sweeps_cut_short = True
+                    break
+                sweep_vertices += 1
+                cur_pair = int(st.match_pair[v])
+                cur_ref = int(st.match_ref[v])
+                best_d, best_move = -1e-9, None
+                inc = st.tris_of(v)
+                options = [(-1, -1)]
+                for c in np.flatnonzero(problem.valid[v]):
+                    p = int(problem.pair_idx[v, c])
+                    j = int(problem.cand_ref[v, c])
+                    if p != cur_pair and st.capacity_ok(v, j):
+                        options.append((p, j))
+                for p, j in options:
+                    if p == cur_pair:
                         continue
-                    if hard:
-                        st.apply(w, -1, -1)
-                        bad = (
-                            st.local_flips(inc).any()
-                            or st.local_flips(st.tris_of(w)).any()
-                        )
-                        st.apply(w, wp, wj)
+                    d = st.delta(v, p, j)
+                    if d >= best_d:
+                        continue
+                    if hard and p >= 0:
+                        # Reject moves creating a flip on incident triangles.
+                        st.apply(v, p, j)
+                        bad = st.local_flips(inc).any()
+                        st.apply(v, cur_pair, cur_ref)
                         if bad:
                             continue
-                    best_d, best_compound = total, (p, j, w)
-                st.apply(v, -1, -1)
-            if best_compound is not None:
-                p, j, w = best_compound
-                st.apply(v, p, j)
-                st.apply(w, -1, -1)
-                improved = True
+                    best_d, best_move = d, (p, j)
+                if best_move is not None:
+                    st.apply(v, *best_move)
+                    improved = True
+                    sweep_moves += 1
 
-        if not improved or sweeps_cut_short:
-            break
+            if sweeps_cut_short:
+                break
+            # Compound move: re-match an unmatched vertex and simultaneously
+            # unmatch one neighbor whose absence disables the would-be flipped
+            # triangles — the MIP's favourite escape (an orientation check only
+            # applies to fully matched triangles).
+            for vi, v in enumerate(cand):
+                if st.match_ref[v] >= 0:
+                    continue
+                if (
+                    sweep_deadline is not None
+                    and (vi & 63) == 0
+                    and _time.time() > sweep_deadline
+                ):
+                    sweeps_cut_short = True
+                    break
+                sweep_vertices += 1
+                inc = st.tris_of(v)
+                best_d, best_compound = -1e-9, None
+                for c in np.flatnonzero(problem.valid[v]):
+                    p = int(problem.pair_idx[v, c])
+                    j = int(problem.cand_ref[v, c])
+                    if not st.capacity_ok(v, j):
+                        continue
+                    d1 = st.apply(v, p, j)
+                    new_flips = inc[st.local_flips(inc)]
+                    neighbors = {
+                        int(w)
+                        for t in new_flips
+                        for w in st.tris[t]
+                        if w != v and st.match_ref[w] >= 0
+                    }
+                    for w in neighbors:
+                        wp, wj = int(st.match_pair[w]), int(st.match_ref[w])
+                        d2 = st.delta(w, -1, -1)
+                        total = d1 + d2
+                        if total >= best_d:
+                            continue
+                        if hard:
+                            st.apply(w, -1, -1)
+                            bad = (
+                                st.local_flips(inc).any()
+                                or st.local_flips(st.tris_of(w)).any()
+                            )
+                            st.apply(w, wp, wj)
+                            if bad:
+                                continue
+                        best_d, best_compound = total, (p, j, w)
+                    st.apply(v, -1, -1)
+                if best_compound is not None:
+                    p, j, w = best_compound
+                    st.apply(v, p, j)
+                    st.apply(w, -1, -1)
+                    improved = True
+                    compound_moves += 1
 
-    # Exact finishing pass for the zero-flip-budget / hard regimes: greedy
-    # 1/2-moves cannot find branch-and-bound's coordinated multi-vertex
-    # escapes, but the hard region is small and local by construction —
-    # solve each connected component of paying triangles exactly with the
-    # MILP oracle, boundary vertices frozen. A component fix can unlock
-    # further improvements in its neighbors, so iterate to a fixed point
-    # (bounded).
-    if stats is not None:
+            if not improved or sweeps_cut_short:
+                ended_by = "converged"
+                break
+        if sweeps_cut_short:
+            ended_by = "deadline"
+
+        # Exact finishing pass for the zero-flip-budget / hard regimes: greedy
+        # 1/2-moves cannot find branch-and-bound's coordinated multi-vertex
+        # escapes, but the hard region is small and local by construction —
+        # solve each connected component of paying triangles exactly with the
+        # MILP oracle, boundary vertices frozen. A component fix can unlock
+        # further improvements in its neighbors, so iterate to a fixed point
+        # (bounded).
         stats["flips_after_greedy"] = int(
             st.local_flips(np.arange(st.T)).sum()
         )
-        stats["sweep_time"] = round(_time.time() - _t_repair0, 1)
+    stats.update(
+        sweeps=sweeps, sweeps_cut_short=int(sweeps_cut_short),
+        sweep_candidates=sweep_candidates, sweep_vertices=sweep_vertices,
+        sweep_moves=sweep_moves,
+        compound_moves=compound_moves, objective_after_sweeps=float(st.obj),
+    )
+    component_passes = 0
     if (st.flip_pen > 0.0 or hard) and st.T and not timed_out:
-        dirty = None  # first pass: all components
-        stall = 0
-        hops = 0
-        # Small/medium windows escalate to 1-hop-expanded, larger
-        # components when the base pass stalls: the extra MILP cost is
-        # bounded by the deadline and the quality is decided here (paper
-        # synthetic flip counts; heart violation parity).
-        small = n <= 6144
-        # Small windows keep rotating chunk seeds until the budget runs
-        # out or the stall tolerance trips: every pass only improves, the
-        # quality-deciding component MILPs are root-bound wall-clock-
-        # limited HiGHS runs whose cut-off point jitters with load, and a
-        # later rotation regularly unlocks an escape an earlier identical
-        # state missed (measured band on the paper synthetic: 54-63
-        # violation nodes at 8 passes, consistently <=55 with extended
-        # rotations).
-        max_passes = 24 if n <= 1024 else 8
-        stall_limit = 4 if n <= 1024 else 2
-        for pass_idx in range(max_passes):
-            obj_before = st.obj
-            st.changed = set()
-            timed_out = _exact_component_repair(
-                st, problem, pair_costs, hard, deadline, stats=stats,
-                dirty=dirty, chunk_seed=pass_idx, expand_hops=hops,
-                max_comp_verts=(64 if hops else 40),
-                workers=workers,
-            )
-            dirty = set(st.changed)
-            if timed_out:
-                break
-            if st.obj >= obj_before - 1e-9:
-                # No gain with this chunking of the oversized blobs; retry
-                # with rotated BFS chunk boundaries (different frozen cuts
-                # expose different coordinated escapes), on small windows
-                # also with 1-hop-expanded free sets, then stop.
-                stall += 1
-                dirty = None
-                if small and hops == 0:
-                    hops = 1
-                elif stall >= stall_limit:
+        with span(stats, "components_time"):
+            dirty = None  # first pass: all components
+            stall = 0
+            hops = 0
+            # Small/medium windows escalate to 1-hop-expanded, larger
+            # components when the base pass stalls: the extra MILP cost is
+            # bounded by the deadline and the quality is decided here (paper
+            # synthetic flip counts; heart violation parity).
+            small = n <= 6144
+            # Small windows keep rotating chunk seeds until the budget runs
+            # out or the stall tolerance trips: every pass only improves, the
+            # quality-deciding component MILPs are root-bound wall-clock-
+            # limited HiGHS runs whose cut-off point jitters with load, and a
+            # later rotation regularly unlocks an escape an earlier identical
+            # state missed (measured band on the paper synthetic: 54-63
+            # violation nodes at 8 passes, consistently <=55 with extended
+            # rotations).
+            max_passes = 24 if n <= 1024 else 8
+            stall_limit = 4 if n <= 1024 else 2
+            ended_by = "max_passes"
+            for pass_idx in range(max_passes):
+                component_passes += 1
+                obj_before = st.obj
+                st.changed = set()
+                timed_out = _exact_component_repair(
+                    st, problem, pair_costs, hard, deadline, stats=stats,
+                    dirty=dirty, chunk_seed=pass_idx, expand_hops=hops,
+                    max_comp_verts=(64 if hops else 40),
+                    workers=workers,
+                )
+                dirty = set(st.changed)
+                if timed_out:
+                    ended_by = "deadline"
                     break
-            else:
-                stall = 0
+                if st.obj >= obj_before - 1e-9:
+                    # No gain with this chunking of the oversized blobs; retry
+                    # with rotated BFS chunk boundaries (different frozen cuts
+                    # expose different coordinated escapes), on small windows
+                    # also with 1-hop-expanded free sets, then stop.
+                    stall += 1
+                    dirty = None
+                    if small and hops == 0:
+                        hops = 1
+                    elif stall >= stall_limit:
+                        ended_by = "stall"
+                        break
+                else:
+                    stall = 0
         # Final intensification: the rotation passes above run 10 s
         # root-bound chunk MILPs; whatever budget remains buys a few LARGE
         # long-cap solves over the worst regions — bigger free sets (and a
@@ -548,17 +583,21 @@ def local_repair(
             and deadline is not None
             and deadline - _time.time() > 15.0
         ):
-            t_int0 = _time.time()
-            timed_out = _exact_component_repair(
-                st, problem, pair_costs, hard, deadline, stats=stats,
-                chunk_seed=101, expand_hops=1, max_comp_verts=96,
-                milp_time_limit=min(60.0, (deadline - t_int0) / 3.0),
-                max_comps=12, workers=workers,
-            )
-            if stats is not None:
-                stats["intensify_time"] = round(_time.time() - t_int0, 1)
-    if stats is not None:
-        stats["flips_out"] = int(st.local_flips(np.arange(st.T)).sum())
+            with span(stats, "intensify_time"):
+                t_int0 = _time.time()
+                timed_out = _exact_component_repair(
+                    st, problem, pair_costs, hard, deadline, stats=stats,
+                    chunk_seed=101, expand_hops=1, max_comp_verts=96,
+                    milp_time_limit=min(60.0, (deadline - t_int0) / 3.0),
+                    max_comps=12, workers=workers,
+                )
+            if timed_out:
+                ended_by = "deadline"
+    stats.update(
+        component_passes=component_passes, objective_out=float(st.obj),
+        ended_by=ended_by,
+        flips_out=int(st.local_flips(np.arange(st.T)).sum()),
+    )
     return st.match_ref, st.match_pair, timed_out
 
 

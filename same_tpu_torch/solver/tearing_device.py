@@ -41,6 +41,7 @@ from ..models.assignment import (
     resolve_device,
     to_device,
 )
+from ..trace import span
 from .auction import (
     default_eps_schedule,
     natural_stop_args,
@@ -226,8 +227,12 @@ def _tearing_loop(
     inp: LoopInputs, state: TearState, r_end: int, *, L: int, K: int,
     max_tear_rounds: int, max_rounds: int, max_cuts_per_round: int,
     max_cuts_total: int, carry: bool = True, warm_max_rounds: int = 0,
+    times=None,
 ) -> TearState:
-    """One guarded tear round (same_tpu/solver/tearing_device.py:67-272)."""
+    """One guarded tear round (same_tpu/solver/tearing_device.py:67-272).
+    The host's waits on the card (the auction's read of its counters, the
+    reads of K7's values and of K8's cuts added) are the spans
+    ``device_wait`` in ``times``."""
     R = max_tear_rounds
     if state.stop or not state.r < min(r_end, R):
         return state
@@ -251,13 +256,14 @@ def _tearing_loop(
         owner_in = torch.full_like(state.owner_c, -1)
         prices_in = torch.zeros_like(state.prices)
         rounds_budget = max_rounds
-    res = auction_loop(
-        costs + extra, inp.slots, inp.valid, inp.nm, prices_in, sched,
-        max_rounds=rounds_budget, assigned0=assigned_in, owner0=owner_in,
-        slot_rows=inp.slot_rows, slot_cols=inp.slot_cols,
-        obj_patience=kn.obj_patience, obj_tol=kn.obj_tol,
-        obj_band=kn.obj_band,
-    )
+    with span(times, "device_wait"):
+        res = auction_loop(
+            costs + extra, inp.slots, inp.valid, inp.nm, prices_in, sched,
+            max_rounds=rounds_budget, assigned0=assigned_in, owner0=owner_in,
+            slot_rows=inp.slot_rows, slot_cols=inp.slot_cols,
+            obj_patience=kn.obj_patience, obj_tol=kn.obj_tol,
+            obj_band=kn.obj_band,
+        )
     choice = res.choice
 
     # Flip test + regret-directed vertex choice at this round's surcharges
@@ -274,11 +280,12 @@ def _tearing_loop(
 
     # Incumbent score (flips-pay search objective): the six values on the
     # device (K7), then one read of them. The [1, ...] views share storage.
-    scal = tear_scalars(
-        costs[None], inp.nm[None], choice[None], inp.cand_ref[None], inp.ref_xy[None],
-        inp.m_ref, flipped[None], checked[None], inp.tri_weights[None],
-        inp.tri_mask[None], inp.src[None],
-    )[0].cpu().numpy()
+    with span(times, "device_wait"):
+        scal = tear_scalars(
+            costs[None], inp.nm[None], choice[None], inp.cand_ref[None], inp.ref_xy[None],
+            inp.m_ref, flipped[None], checked[None], inp.tri_weights[None],
+            inp.tri_mask[None], inp.src[None],
+        )[0].cpu().numpy()
     best_score, since_improve, best_r, stop_now = _score_and_stop(
         scal, r, kn, state.best_score, state.since_improve, state.best_r,
         state.cuts_added, max_cuts_total,
@@ -288,12 +295,13 @@ def _tearing_loop(
     if not stop_now:
         # Cut registration and surcharge (K8) write the registry and
         # ``extra`` in place; one read of the cuts added.
-        added = int(register_cuts(
-            inp.tris[None], inp.surcharge[None], choice[None], inp.pair_idx[None],
-            flipped[None], vmove[None], np.ones(1, bool), np.array([state.cuts_added]),
-            state.cut_mem[None], state.cut_cnt[None], extra[None], L=L, K=K,
-            max_cuts_per_round=max_cuts_per_round, max_cuts_total=max_cuts_total,
-        )[0])
+        with span(times, "device_wait"):
+            added = int(register_cuts(
+                inp.tris[None], inp.surcharge[None], choice[None], inp.pair_idx[None],
+                flipped[None], vmove[None], np.ones(1, bool), np.array([state.cuts_added]),
+                state.cut_mem[None], state.cut_cnt[None], extra[None], L=L, K=K,
+                max_cuts_per_round=max_cuts_per_round, max_cuts_total=max_cuts_total,
+            )[0])
 
     state.extra = extra
     state.prices = res.prices
@@ -368,6 +376,7 @@ def run_tearing_device(
     on_round=None,
     device=None,
     schedule_len=None,
+    times=None,
 ):
     """Run the fused tearing loop on ``device``; returns host-side round data.
 
@@ -380,6 +389,12 @@ def run_tearing_device(
     Given a batch's ``max_rounds`` and ``schedule_len`` (both in every dict
     :func:`run_tearing_device_batch` returns), the loop runs the window
     exactly as the batched loop does.
+
+    The spans ``separation_setup`` (uploads and the loop's state),
+    ``tear_round`` (each round; ``device_time`` is their sum, the synced
+    loop's wall), ``device_wait`` (inside a round, every wait on the card)
+    and ``separation_readback`` (the bulk transfer and the cut registry) go
+    into ``times``.
     """
     import time as _time
 
@@ -391,66 +406,68 @@ def run_tearing_device(
     L = int(problem.n_slot_copies)
     device = resolve_device(device)
 
-    full_sched, warm_sched = window_schedules(
-        problem, tri_weights, delaunay_penalty, eps_final, eps_scaling,
-        prices0 is not None,
-    )
-    # Equal-length schedules, padded with eps_final (tearing_device.py:364-373).
-    pad_len = max(len(warm_sched), len(full_sched), schedule_len or 0)
-    warm_sched, full_sched = (
-        np.concatenate([s, np.full(pad_len - len(s), eps_final, np.float32)])
-        if len(s) < pad_len else s
-        for s in (warm_sched, full_sched)
-    )
+    with span(times, "separation_setup"):
+        full_sched, warm_sched = window_schedules(
+            problem, tri_weights, delaunay_penalty, eps_final, eps_scaling,
+            prices0 is not None,
+        )
+        # Equal-length schedules, padded with eps_final (tearing_device.py:364-373).
+        pad_len = max(len(warm_sched), len(full_sched), schedule_len or 0)
+        warm_sched, full_sched = (
+            np.concatenate([s, np.full(pad_len - len(s), eps_final, np.float32)])
+            if len(s) < pad_len else s
+            for s in (warm_sched, full_sched)
+        )
 
-    pd = to_device(problem, device)
-    knobs = _knobs(delaunay_penalty, allowed_flip_fraction, penalty_coeff, hard,
-                   plateau_patience, plateau_tol, n_pad, eps_final, obj_patience, mip_gap)
-    tw_d = torch.as_tensor(np.ascontiguousarray(tri_weights, np.float32)).to(device)
-    ref_d = torch.as_tensor(np.ascontiguousarray(ref_coords, np.float32)).to(device)
-    inp = LoopInputs(
-        costs=pd.costs, slots=pd.slots, valid=pd.valid, nm=pd.nm_cost,
-        pair_idx=pd.pair_idx, cand_ref=pd.cand_ref, slot_rows=pd.slot_rows,
-        slot_cols=pd.slot_cols,
-        tris=torch.as_tensor(np.ascontiguousarray(tris, np.int32)).to(device),
-        tri_mask=torch.ones(T, dtype=torch.bool, device=device),
-        src=torch.as_tensor(np.ascontiguousarray(source_signs, np.int32)).to(device),
-        ref_xy=ref_d,
-        tri_weights=tw_d,
-        surcharge=_cut_surcharge(tw_d, knobs),
-        m_ref=torch.tensor([ref_d.shape[0]], dtype=torch.int32, device=device),
-        full_schedule=full_sched,
-        warm_schedule=warm_sched,
-        knobs=knobs,
-    )
-    max_rounds = round_budget(n_pad, C, 1, max_rounds)
-    kwargs = dict(
-        L=L,
-        K=K,
-        max_tear_rounds=max_tear_rounds,
-        max_rounds=max_rounds,
-        warm_max_rounds=max(1024, max_rounds // 8),
-        max_cuts_per_round=int(max_cuts_per_round),
-        max_cuts_total=int(max_cuts) if max_cuts is not None else 1 << 30,
-        carry=carry,
-    )
-    if prices0 is not None:
-        prices_init = torch.as_tensor(
-            np.asarray(prices0, problem.costs.dtype)
-        ).to(device)
-    else:
-        prices_init = torch.zeros(problem.n_slots + 1, dtype=torch.float32, device=device)
-    state = _init_state(n_pad, C, T, K, max_tear_rounds, prices_init)
+        pd = to_device(problem, device)
+        knobs = _knobs(delaunay_penalty, allowed_flip_fraction, penalty_coeff, hard,
+                       plateau_patience, plateau_tol, n_pad, eps_final, obj_patience, mip_gap)
+        tw_d = torch.as_tensor(np.ascontiguousarray(tri_weights, np.float32)).to(device)
+        ref_d = torch.as_tensor(np.ascontiguousarray(ref_coords, np.float32)).to(device)
+        inp = LoopInputs(
+            costs=pd.costs, slots=pd.slots, valid=pd.valid, nm=pd.nm_cost,
+            pair_idx=pd.pair_idx, cand_ref=pd.cand_ref, slot_rows=pd.slot_rows,
+            slot_cols=pd.slot_cols,
+            tris=torch.as_tensor(np.ascontiguousarray(tris, np.int32)).to(device),
+            tri_mask=torch.ones(T, dtype=torch.bool, device=device),
+            src=torch.as_tensor(np.ascontiguousarray(source_signs, np.int32)).to(device),
+            ref_xy=ref_d,
+            tri_weights=tw_d,
+            surcharge=_cut_surcharge(tw_d, knobs),
+            m_ref=torch.tensor([ref_d.shape[0]], dtype=torch.int32, device=device),
+            full_schedule=full_sched,
+            warm_schedule=warm_sched,
+            knobs=knobs,
+        )
+        max_rounds = round_budget(n_pad, C, 1, max_rounds)
+        kwargs = dict(
+            L=L,
+            K=K,
+            max_tear_rounds=max_tear_rounds,
+            max_rounds=max_rounds,
+            warm_max_rounds=max(1024, max_rounds // 8),
+            max_cuts_per_round=int(max_cuts_per_round),
+            max_cuts_total=int(max_cuts) if max_cuts is not None else 1 << 30,
+            carry=carry,
+        )
+        if prices0 is not None:
+            prices_init = torch.as_tensor(
+                np.asarray(prices0, problem.costs.dtype)
+            ).to(device)
+        else:
+            prices_init = torch.zeros(problem.n_slots + 1, dtype=torch.float32, device=device)
+        state = _init_state(n_pad, C, T, K, max_tear_rounds, prices_init)
     r_host = 0
     time_limit_reached = False
     device_time = 0.0
     while r_host < max_tear_rounds:
-        t_round = _time.time()
-        state = _tearing_loop(inp, state, r_host + 1, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        with span(times, "tear_round") as round_span:
+            state = _tearing_loop(inp, state, r_host + 1, times=times, **kwargs)
+            if device.type == "cuda":
+                with span(times, "device_wait"):
+                    torch.cuda.synchronize(device)
         r_host = state.r
-        device_time += _time.time() - t_round
+        device_time += round_span.seconds
         if state.stop or r_host >= max_tear_rounds:
             break
         if deadline is not None and _time.time() > deadline:
@@ -462,22 +479,23 @@ def run_tearing_device(
 
     # Single bulk transfer of everything else the host needs.
     r = r_host
-    cut_mem = state.cut_mem.cpu().numpy()
-    cut_cnt = state.cut_cnt.cpu().numpy()
-    cut_tris, cut_verts, cut_pairs = _registry_from_memory(tris, cut_mem, cut_cnt)
-    return {
-        "rounds_used": r,
-        "cuts_added": int(state.cuts_added),
-        "time_limit_reached": time_limit_reached,
-        "choices": state.all_choices[:r].cpu().numpy(),
-        "flipped": state.all_flipped[:r].cpu().numpy(),
-        "checked": state.all_checked[:r].cpu().numpy(),
-        "auction_rounds": state.all_rounds[:r].copy(),
-        "cut_tris": cut_tris,
-        "cut_verts": cut_verts,
-        "cut_pairs": cut_pairs,
-        "device_time": device_time,
-    }
+    with span(times, "separation_readback"):
+        cut_mem = state.cut_mem.cpu().numpy()
+        cut_cnt = state.cut_cnt.cpu().numpy()
+        cut_tris, cut_verts, cut_pairs = _registry_from_memory(tris, cut_mem, cut_cnt)
+        return {
+            "rounds_used": r,
+            "cuts_added": int(state.cuts_added),
+            "time_limit_reached": time_limit_reached,
+            "choices": state.all_choices[:r].cpu().numpy(),
+            "flipped": state.all_flipped[:r].cpu().numpy(),
+            "checked": state.all_checked[:r].cpu().numpy(),
+            "auction_rounds": state.all_rounds[:r].copy(),
+            "cut_tris": cut_tris,
+            "cut_verts": cut_verts,
+            "cut_pairs": cut_pairs,
+            "device_time": device_time,
+        }
 
 
 def snapshot_best_incumbent(state: TearState):
@@ -798,15 +816,16 @@ def run_tearing_device_batch(
     time_limit_reached = [False] * B
     device_time = 0.0
     while r_host < max_tear_rounds:
-        t_round = _time.time()
-        for sh in shards:
-            _batch_round(sh, r_host + 1, **kwargs)
-        for sh in shards:
-            if sh.device.type == "cuda":
-                torch.cuda.synchronize(sh.device)
-        r_host += 1
-        stops = np.concatenate([sh.stop for sh in shards])
-        device_time += _time.time() - t_round
+        with span(None, "tear_round") as round_span:
+            for sh in shards:
+                _batch_round(sh, r_host + 1, **kwargs)
+            for sh in shards:
+                if sh.device.type == "cuda":
+                    with span(None, "device_wait"):
+                        torch.cuda.synchronize(sh.device)
+            r_host += 1
+            stops = np.concatenate([sh.stop for sh in shards])
+        device_time += round_span.seconds
         if bool(stops[:B].all()) or r_host >= max_tear_rounds:
             break
         if deadline is not None and _time.time() > deadline:

@@ -41,6 +41,7 @@ import pandas as pd
 
 from .core import run_same
 from .models.assignment import resolve_device
+from .trace import add, locked, span
 from .utils.params import init_optim_params, init_solver_params
 
 
@@ -380,8 +381,9 @@ def sliding_window_matching(
         from .utils.concurrency import HOST_LOCK
 
         def _solve_one(task):
+            waits = {}
             try:
-                with HOST_LOCK:
+                with locked(waits, HOST_LOCK):
                     pw = prepare_window(
                         task["ref_sub"],
                         task["mov_sub"],
@@ -396,8 +398,9 @@ def sliding_window_matching(
                     )
             except EmptyWindowError:
                 return empty_matches_df(commonCT, optim["cell_id_col"])
+            add(pw.stage_times, waits)
             res = solve_prepared(pw, verbose=verbose, device=device)
-            with HOST_LOCK:
+            with locked(pw.stage_times, HOST_LOCK):
                 window_matches, _var_out = finalize_window(
                     pw, res, outprefix=_window_outprefix(task), verbose=verbose
                 )
@@ -461,50 +464,52 @@ def merge_window_matches_unique_ref(matches_list, cell_id_col="Cell_Num_Old"):
     (aligned, ref) pairs preferring ``filtered_violation == False`` then
     smaller ``window_id`` (stable sort), then maximum-cardinality bipartite
     matching between aligned and ref IDs. Uses the first-party C++
-    Hopcroft-Karp when built (native/), else scipy's implementation.
+    Hopcroft-Karp when built (native/), else scipy's implementation. The
+    merge is the span ``merge`` in a profiler's trace.
     """
-    if not matches_list:
-        return pd.DataFrame()
-    if isinstance(matches_list, pd.DataFrame):
-        matches_list = [matches_list]
+    with span(None, "merge"):
+        if not matches_list:
+            return pd.DataFrame()
+        if isinstance(matches_list, pd.DataFrame):
+            matches_list = [matches_list]
 
-    merged = pd.concat(matches_list, ignore_index=True)
-    aligned_col = f"Aligned_{cell_id_col}"
-    ref_col = f"Ref_{cell_id_col}"
-    required = ["window_id", aligned_col, ref_col, "X", "Y", "filtered_violation"]
-    missing = [c for c in required if c not in merged.columns]
-    if missing:
-        raise ValueError(f"Missing required columns in matches: {missing}")
+        merged = pd.concat(matches_list, ignore_index=True)
+        aligned_col = f"Aligned_{cell_id_col}"
+        ref_col = f"Ref_{cell_id_col}"
+        required = ["window_id", aligned_col, ref_col, "X", "Y", "filtered_violation"]
+        missing = [c for c in required if c not in merged.columns]
+        if missing:
+            raise ValueError(f"Missing required columns in matches: {missing}")
 
-    merged["filtered_violation"] = (
-        merged["filtered_violation"].fillna(True).astype(bool)
-    )
-    merged = merged.sort_values(
-        by=["filtered_violation", "window_id"], ascending=[True, True],
-        kind="mergesort",
-    )
-    merged = merged.drop_duplicates(subset=[aligned_col, ref_col], keep="first")
+        merged["filtered_violation"] = (
+            merged["filtered_violation"].fillna(True).astype(bool)
+        )
+        merged = merged.sort_values(
+            by=["filtered_violation", "window_id"], ascending=[True, True],
+            kind="mergesort",
+        )
+        merged = merged.drop_duplicates(subset=[aligned_col, ref_col], keep="first")
 
-    aligned_vals = merged[aligned_col].to_numpy()
-    ref_vals = merged[ref_col].to_numpy()
-    unique_aligned = sorted(pd.unique(aligned_vals))
-    unique_ref = sorted(pd.unique(ref_vals))
-    a_idx = {a: i for i, a in enumerate(unique_aligned)}
-    b_idx = {b: i for i, b in enumerate(unique_ref)}
-    ai = np.array([a_idx[a] for a in aligned_vals])
-    bi = np.array([b_idx[b] for b in ref_vals])
+        aligned_vals = merged[aligned_col].to_numpy()
+        ref_vals = merged[ref_col].to_numpy()
+        unique_aligned = sorted(pd.unique(aligned_vals))
+        unique_ref = sorted(pd.unique(ref_vals))
+        a_idx = {a: i for i, a in enumerate(unique_aligned)}
+        b_idx = {b: i for i, b in enumerate(unique_ref)}
+        ai = np.array([a_idx[a] for a in aligned_vals])
+        bi = np.array([b_idx[b] for b in ref_vals])
 
-    pairing = _max_bipartite_matching(ai, bi, len(unique_aligned), len(unique_ref))
+        pairing = _max_bipartite_matching(ai, bi, len(unique_aligned), len(unique_ref))
 
-    # Row per matched (aligned, ref) edge; dedup kept one row per edge.
-    edge_row = {}
-    for row, (x, yv) in enumerate(zip(ai, bi)):
-        edge_row.setdefault((x, yv), row)
-    selected = [
-        edge_row[(x, pairing[x])] for x in range(len(unique_aligned))
-        if pairing[x] >= 0 and (x, pairing[x]) in edge_row
-    ]
-    return merged.iloc[selected].copy().reset_index(drop=True)
+        # Row per matched (aligned, ref) edge; dedup kept one row per edge.
+        edge_row = {}
+        for row, (x, yv) in enumerate(zip(ai, bi)):
+            edge_row.setdefault((x, yv), row)
+        selected = [
+            edge_row[(x, pairing[x])] for x in range(len(unique_aligned))
+            if pairing[x] >= 0 and (x, pairing[x]) in edge_row
+        ]
+        return merged.iloc[selected].copy().reset_index(drop=True)
 
 
 def _max_bipartite_matching(ai, bi, n_a, n_b):
