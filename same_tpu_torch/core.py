@@ -45,14 +45,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import pandas as pd
 
+from . import host_arrays
 from .candidates import find_knn_with_cell_type_priority, find_knn_within_radius
-from .eval import (
-    precompute_triangle_info,
-    print_violation_report,
-    verify_spatial_preservation,
-)
+from .eval import print_violation_report
 from .geometry import (
-    calculate_signed_area,
     delaunay_simplices,
     filter_triangles_by_radius,
     orientation_signs_np,
@@ -327,11 +323,8 @@ def prepare_window(
 
         # Simplex map + triangle info (:1095-1108).
         with span(stage_times, "triangle_index"):
-            aligned_simplex_map = {i: set() for i in range(n_aligned)}
-            for t, tri in enumerate(tris):
-                for v in tri:
-                    aligned_simplex_map[int(v)].add(t)
-            triangle_info = precompute_triangle_info(aligned_df, tris, aligned_simplex_map)
+            aligned_simplex_map = host_arrays.simplex_map(tris, n_aligned)
+            triangle_info = host_arrays.triangle_info(aligned_df, tris)
 
         # Costs, weights, orientations, the reference's coordinates.
         with span(stage_times, "costs"):
@@ -396,24 +389,17 @@ def prepare_window(
             np.minimum.at(best_pair_cost, valid_pairs[:, 0], costs)
             obj_lb = float(np.minimum(best_pair_cost, no_match_cost).sum())
             from .models.assignment import matching_objective
-            from .warmstart import compute_warm_start_pairs
 
-            greedy_chosen, _greedy_unmatched = compute_warm_start_pairs(
-                valid_pairs=[(int(i), int(j)) for i, j in valid_pairs],
-                costs=costs,
-                n_aligned=n_aligned,
-                n_ref=n_ref,
-                aligned_sizes=sizes_a,
-                no_match_penalty=no_match_penalty,
-                max_matches=max_matches,
-                init_method="greedy",
-                verbose=False,
+            # Whatever max_matches says, one pair per row and per ref, as
+            # the copy's greedy scan (warmstart.compute_warm_start_pairs).
+            greedy_chosen, greedy_rounds = host_arrays.greedy_pairs(
+                valid_pairs, costs, n_aligned, n_ref,
+                float(no_match_penalty) * sizes_a,
             )
             greedy_mr = np.full(n_aligned, -1, dtype=np.int64)
             greedy_cost = np.zeros(n_aligned)
-            for i, j, idx in greedy_chosen:
-                greedy_mr[i] = j
-                greedy_cost[i] = costs[idx]
+            greedy_mr[greedy_chosen[:, 0]] = greedy_chosen[:, 1]
+            greedy_cost[greedy_chosen[:, 0]] = costs[greedy_chosen[:, 2]]
             obj_est = matching_objective(
                 greedy_mr, greedy_cost, n_ref, penalty_coeff, no_match_cost
             )
@@ -446,9 +432,9 @@ def prepare_window(
         warm_info: Dict[str, Any] = {}
         init_method = solver.get("init_method")
         with span(stage_times, "warm_start"):
-            from .warmstart import warm_start_prices
-
             if init_method == "hungarian":
+                from .warmstart import compute_warm_start_pairs
+
                 chosen, unmatched = compute_warm_start_pairs(
                     valid_pairs=[(int(i), int(j)) for i, j in valid_pairs],
                     costs=costs,
@@ -462,6 +448,7 @@ def prepare_window(
                     init_hungarian_max_n=solver["init_hungarian_max_n"],
                     verbose=verbose,
                 )
+                n_unmatched = len(unmatched)
                 method_used = "hungarian"
             elif init_method == "sinkhorn":
                 # Entropic-OT dual prices as the warm start (ops/sinkhorn.py): the
@@ -469,12 +456,13 @@ def prepare_window(
                 # assignment equilibrium prices directly.
                 from .ops.sinkhorn import sinkhorn_prices
 
-                chosen, unmatched, method_used = [], set(), "sinkhorn"
+                chosen, n_unmatched, method_used = [], 0, "sinkhorn"
                 prices0 = np.asarray(sinkhorn_prices(problem, device=device))
             elif init_method == "greedy" or (
                 init_method is None and solver.get("tpu_auto_warm_start", True)
             ):
-                chosen, unmatched = greedy_chosen, _greedy_unmatched
+                chosen = greedy_chosen
+                n_unmatched = n_aligned - len(greedy_chosen)
                 method_used = "greedy" if init_method == "greedy" else "greedy-auto"
             elif init_method:
                 raise ValueError(
@@ -482,19 +470,20 @@ def prepare_window(
                     "Use 'greedy', 'hungarian', or 'sinkhorn'."
                 )
             else:
-                chosen, unmatched, method_used = [], set(), None
+                chosen, n_unmatched, method_used = [], 0, None
             if method_used is not None:
-                if chosen and prices0 is None:
-                    prices0 = warm_start_prices(problem, chosen)
+                if len(chosen) and prices0 is None:
+                    prices0 = host_arrays.warm_start_prices(problem, chosen)
                 warm_info = {
                     "method": method_used,
                     "n_seeded": len(chosen),
-                    "n_unmatched": len(unmatched),
+                    "n_unmatched": n_unmatched,
+                    "greedy_rounds": greedy_rounds,
                 }
                 if verbose:
                     print(
                         f"Warm start ({method_used}): {len(chosen)} seeded matches, "
-                        f"{len(unmatched)} unmatched"
+                        f"{n_unmatched} unmatched"
                     )
 
         return PreparedWindow(
@@ -798,47 +787,19 @@ def finalize_window(
         # ---- Violation verification (:1302-1310) ------------------------------
         with span(pw.stage_times, "verify"):
             with span(pw.stage_times, "violations"):
-                violations = verify_spatial_preservation(
-                    aligned_df=aligned_df,
-                    ref_df=ref_df,
-                    matches_df=out_df,
-                    triangle_info=pw.triangle_info,
-                )
+                ref_of = host_arrays.ref_of_aligned(out_df, n_aligned)
+                violations = host_arrays.spatial_violations(aligned_df, ref_df, tris, ref_of)
                 if verbose:
                     print_violation_report(violations)
 
             # ---- Triangle area analysis (:1355-1408) ------------------------------
             with span(pw.stage_times, "triangle_areas"):
-                areas_before = {}
-                areas_after = {}
-                flipped_tris = []
-                matched_vertices = {}
-                aligned_to_ref = {
-                    int(i): int(j) for i, j in zip(out_df["aligned_idx"], out_df["ref_idx"])
-                }
-                aligned_coords, ref_coords = pw.aligned_coords, pw.ref_coords
-                for t in range(T):
-                    p1, p2, p3 = (int(v) for v in tris[t])
-                    areas_before[t] = calculate_signed_area(
-                        tuple(aligned_coords[p1]), tuple(aligned_coords[p2]),
-                        tuple(aligned_coords[p3]),
-                    )
-                    matched = [p in aligned_to_ref for p in (p1, p2, p3)]
-                    matched_vertices[t] = matched
-                    if not all(matched):
-                        areas_after[t] = None
-                        continue
-                    rc = [tuple(ref_coords[aligned_to_ref[p]]) for p in (p1, p2, p3)]
-                    area = calculate_signed_area(*rc)
-                    areas_after[t] = area
-                    if areas_before[t] * area < 0:
-                        flipped_tris.append(t)
+                areas_before, areas_after, flipped_tris, matched_vertices = (
+                    host_arrays.triangle_areas(tris, pw.aligned_coords, pw.ref_coords, ref_of)
+                )
 
             # Penalty points: vertices of triangles paying the q_t price (:1326-1352).
-            penalty_points = set()
-            for t in np.flatnonzero(result.q_active):
-                for v in tris[t]:
-                    penalty_points.add(int(v))
+            penalty_points = host_arrays.vertices_of(tris, np.flatnonzero(result.q_active))
             violation_points = set(violations["points_with_violations"])
             points_both = violation_points & penalty_points
 
@@ -937,10 +898,7 @@ def finalize_window(
                 json.dump(state, f, indent=1)
 
         # triangle_violation from actual signed-area flips (:1464-1471).
-        flipped_nodes = set()
-        for t in flipped_tris:
-            for v in tris[t]:
-                flipped_nodes.add(int(v))
+        flipped_nodes = host_arrays.vertices_of(tris, flipped_tris)
         out_df["triangle_violation"] = out_df["aligned_idx"].isin(flipped_nodes)
         out_df["filtered_violation"] = out_df["aligned_idx"].isin(points_both)
         out_df["run_time"] = solve_time

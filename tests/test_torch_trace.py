@@ -158,6 +158,15 @@ def test_trace_spans_lie_in_their_parents(windows):
                    for p, p0, p1 in spans), name
 
 
+def test_host_pass_spans_and_greedy_rounds(windows):
+    for tpu, _ in windows.values():
+        st = tpu["stage_times"]
+        for name in ("eps_estimate", "triangle_index", "warm_start",
+                     "violations", "triangle_areas"):
+            assert 0 <= st[name] <= st[PARENT[name]], name
+        assert tpu["warm_start"]["greedy_rounds"] >= 1
+
+
 def test_repair_counters_under_a_generous_budget(windows):
     rs = windows["host"][0]["repair_stats"]
     assert rs["ended_by"] in ("converged", "stall", "max_passes")

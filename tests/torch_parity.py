@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from same_tpu_torch.geometry import calculate_signed_area
+
 # pytest-xdist runs several workers side by side: one thread each.
 torch.set_num_threads(1)
 
@@ -105,6 +107,59 @@ def assert_bit_equal(a, b, what=""):
         b = b.view(a.dtype)
     bad = np.flatnonzero(a.reshape(-1) != b.reshape(-1))
     assert bad.size == 0, f"{what}: first difference at flat index {bad[:5]}"
+
+
+def assert_same(a, b, path="$"):
+    """Equal values of the same types, recursively; floats bit for bit, and
+    dicts with their keys in the same order."""
+    assert type(a) is type(b), (path, type(a), type(b))
+    if isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for k, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{k}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert_bit_equal(a, b, path)
+    elif isinstance(a, (float, np.floating)):
+        assert np.asarray(a).tobytes() == np.asarray(b).tobytes(), (path, a, b)
+    else:
+        assert a == b, (path, a, b)
+
+
+def areas_loop(tris, aligned_coords, ref_coords, matches):
+    """``finalize_window``'s per-triangle area loop, as the port had it."""
+    areas_before, areas_after, flipped_tris, matched_vertices = {}, {}, [], {}
+    aligned_to_ref = {
+        int(i): int(j) for i, j in zip(matches["aligned_idx"], matches["ref_idx"])}
+    for t in range(len(tris)):
+        p1, p2, p3 = (int(v) for v in tris[t])
+        areas_before[t] = calculate_signed_area(
+            tuple(aligned_coords[p1]), tuple(aligned_coords[p2]),
+            tuple(aligned_coords[p3]))
+        matched = [p in aligned_to_ref for p in (p1, p2, p3)]
+        matched_vertices[t] = matched
+        if not all(matched):
+            areas_after[t] = None
+            continue
+        rc = [tuple(ref_coords[aligned_to_ref[p]]) for p in (p1, p2, p3)]
+        area = calculate_signed_area(*rc)
+        areas_after[t] = area
+        if areas_before[t] * area < 0:
+            flipped_tris.append(t)
+    return areas_before, areas_after, flipped_tris, matched_vertices
+
+
+def vertices_loop(tris, which):
+    """The set of the vertices of triangles ``which``, filled by a loop."""
+    out = set()
+    for t in which:
+        for v in tris[t]:
+            out.add(int(v))
+    return out
 
 
 def capture_finish(monkeypatch, module):
